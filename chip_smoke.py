@@ -9,15 +9,26 @@ non-zero without printing a result):
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: compile every CUDA kernel from ``presto_tpu_torch/csrc``;
 3. kernels: each kernel's wrapper on card tensors, exactly equal to its
-   plain PyTorch version, at edge cases and at the shapes the main path
-   gives it; kernel, plain and library times are medians of 20 samples
-   timed with CUDA events;
+   plain PyTorch version at edge cases;
 4. queries: ``LocalRunner(scale_factor=1.0)`` on cuda runs TPC-H Q1, Q6,
    Q14 and a BIGINT sum through ``run_sql`` (one warm-up, then 5 timed
    runs each), every result equal to a numpy oracle over the same
    generated tables; the kernels' launch counts are reset just before and
    read just after, and each kernel must have launched;
-5. a ``kernels`` JSON line, then the card line, then the result line
+5. measure: each kernel, exactly equal to its plain version, at the
+   shapes the main path gives it (``sorted_probe`` also at SF1's
+   lineitem -> orders probe, clustered and shuffled), timed two ways,
+   each the median of 20 samples with the kernel, its plain version and
+   the library call in turns:
+   - call time (``call_ms``, also ``ms``): CUDA events around 10
+     back-to-back calls of the Python function, so the host's cost per
+     call is in it whenever it exceeds the device's;
+   - device time (``device_ms``, also ``kernel_ms``): the summed duration
+     of the device activities (kernels, memsets, copies) one call makes,
+     read from ``torch.profiler`` over windows of 10 calls;
+   ``library_ms`` / ``library_device_ms`` are the same two times of one
+   PyTorch call computing the same function;
+6. a ``kernels`` JSON line, then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -60,22 +71,68 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn) -> float:
-    """Median over SAMPLES of the per-call time of CALLS back-to-back calls,
-    timed with CUDA events."""
-    fn()
+def call_ms(torch, fns: dict) -> dict:
+    """Call time: for each function, the median over SAMPLES of the
+    per-call time of CALLS back-to-back calls, bracketed by CUDA events,
+    the functions taken in turns.  Where the host needs longer per call
+    than the device, this is the host's call rate."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    times = []
+    times = {name: [] for name in fns}
     for _ in range(SAMPLES):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(CALLS):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / CALLS)
-    return statistics.median(times)
+        for name, fn in fns.items():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(CALLS):
+                fn()
+            e1.record()
+            e1.synchronize()
+            times[name].append(e0.elapsed_time(e1) / CALLS)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _device_events(torch, run) -> list:
+    """The device activities (kernels, memsets, copies) that
+    ``torch.profiler`` recorded while ``run()`` ran, in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(torch, fns: dict) -> dict:
+    """Device time: for each function, the median over SAMPLES of the
+    summed duration of the device activities of CALLS calls, per call,
+    each sample one ``torch.profiler`` window, the functions in turns.
+    The profiler now and then drops an activity or a whole window's: a
+    window whose count is not a multiple of CALLS is taken again."""
+    def window(fn) -> float:
+        def run():
+            for _ in range(CALLS):
+                fn()
+        for _ in range(5):
+            events = _device_events(torch, run)
+            if events and len(events) % CALLS == 0:
+                return sum(e.time_range.elapsed_us()
+                           for e in events) / CALLS / 1e3
+        raise AssertionError(f"profiler: {len(events)} device activities "
+                             f"in a window of {CALLS} calls")
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(SAMPLES):
+        for name, fn in fns.items():
+            times[name].append(window(fn))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 # ---------------------------------------------------------------- kernels
@@ -102,6 +159,68 @@ def check_sorted_probe(torch, CK, keys, probes, n_valid, label):
     return err
 
 
+def sample_positions(n_valid: int, size: int):
+    """The key positions a sample of ``size`` (a power of two) evenly
+    spaced keys of [0, n_valid) takes: ((j+1) n_valid / size) - 1, or every
+    position when the valid keys fit."""
+    import torch
+    j = torch.arange(min(n_valid, size), dtype=torch.int64)
+    if n_valid <= size:
+        return j
+    return (((j + 1) * n_valid) >> (size.bit_length() - 1)) - 1
+
+
+def probe_edge_cases(torch, CK, dev, gen) -> int:
+    """``sorted_probe`` against its plain version on a table of random keys
+    and one of long runs of equal keys (runs of ~5,000 cross every sample
+    position), at every n_valid in {0, 1, 2, 123457, 200000} and S-1, S,
+    S+1 for every sample size S, with garbage beyond n_valid, probes equal
+    to (and one off) the sampled keys, random probes and int64 min/max, P
+    in {1, 255, 257, 1M}; n_valid passed as an int, an int64 device scalar
+    and an int32 device scalar in turns.  Returns the checks made."""
+    n, lo64, hi64 = 200_000, -2**63, 2**63 - 1
+    # every sample size the kernel's launch plan can choose
+    sizes = tuple(1 << b for b in range(CK.SAMPLE_LOG2[0],
+                                        CK.SAMPLE_LOG2[1] + 1))
+    tables = {
+        "random": torch.randint(-10**12, 10**12, (n,), generator=gen),
+        "runs": torch.randint(0, 40, (n,), generator=gen) * 1000 - 20_000}
+    n_valids = sorted({0, 1, 2, 123_457, n} | {
+        s + d for s in sizes for d in (-1, 0, 1)})
+    checks = 0
+    for tname, table in tables.items():
+        table = torch.sort(table).values
+        for n_valid in n_valids:
+            keys = table.clone()
+            keys[n_valid:] = torch.randint(lo64, hi64, (n - n_valid,),
+                                           generator=gen)
+            keys[n_valid::7] = hi64  # garbage includes the extremes
+            keys[n_valid + 3::7] = lo64
+            sampled = torch.cat([keys[sample_positions(n_valid, s)]
+                                 for s in sizes])
+            pool = torch.cat([
+                sampled, sampled - 1, sampled + 1,
+                keys[torch.randint(0, max(n_valid, 1), (4096,),
+                                   generator=gen)],
+                torch.randint(-2 * 10**12, 2 * 10**12, (4096,),
+                              generator=gen)])
+            pool = torch.cat([torch.tensor([lo64, hi64]),
+                              pool[torch.randperm(pool.shape[0],
+                                                  generator=gen)]])
+            d_keys = keys.to(dev)
+            for p in (1, 255, 257, 1_000_000):
+                probes = pool[torch.randint(0, pool.shape[0], (p,),
+                                            generator=gen)]
+                probes[:min(p, pool.shape[0])] = pool[:p]
+                nv = (n_valid, torch.tensor(n_valid, device=dev),
+                      torch.tensor(n_valid, dtype=torch.int32,
+                                   device=dev))[checks % 3]
+                check_sorted_probe(torch, CK, d_keys, probes.to(dev), nv,
+                                   f"{tname} n_valid={n_valid} P={p}")
+                checks += 1
+    return checks
+
+
 def edge_cases(torch, CK, dev) -> None:
     gen = torch.Generator(device="cpu").manual_seed(7)
     big = 2**62
@@ -112,65 +231,76 @@ def edge_cases(torch, CK, dev) -> None:
             check_masked_sum(torch, CK, v, m, f"n={n} density={density}")
     say("kernels", kernel="masked_sum", edge_cases="n in 0,1,8191,6M x "
         "density 0,0.4,1, |v| < 2^62", max_abs_err=0)
-    keys = torch.sort(torch.randint(-10**12, 10**12, (200_000,),
-                                    generator=gen)).values.to(dev)
-    probes = torch.cat([
-        keys[torch.randint(0, 200_000, (500_000,), generator=gen).to(dev)],
-        torch.randint(-2 * 10**12, 2 * 10**12, (499_998,),
-                      generator=gen).to(dev),
-        torch.tensor([-2**63, 2**63 - 1], device=dev)])
-    for n_valid in (200_000, 123_457, 0):
-        nv = torch.tensor(n_valid, device=dev)
-        check_sorted_probe(torch, CK, keys, probes, nv, f"n_valid={n_valid}")
-    say("kernels", kernel="sorted_probe", edge_cases="n=200k keys with "
-        "negatives, P=1M probes with misses, n_valid in 200k,123457,0",
-        max_abs_err=0)
+    checks = probe_edge_cases(torch, CK, dev, gen)
+    say("kernels", kernel="sorted_probe", edge_cases="random and "
+        "long-run keys (n=200k), garbage beyond n_valid, n_valid in "
+        "0,1,2,123457,200000 and S-1,S,S+1 for every sample size S, "
+        "probes = sampled keys +-1, random, int64 min/max, P in "
+        "1,255,257,1M", checks=checks, max_abs_err=0)
 
 
 def path_inputs(torch, runner):
-    """The kernels' inputs as the main path forms them: the BIGINT sum's
-    l_orderkey column with its filter mask (masked_sum), and Q14's sorted
-    part keys against the lineitem keys of its month (sorted_probe)."""
+    """The kernels' inputs as the main path forms them, at SF1: the BIGINT
+    sum's l_orderkey column with its filter mask (masked_sum); Q14's
+    sorted part keys against the lineitem part keys of its month
+    (sorted_probe, the main path's shape); and the lineitem -> orders
+    foreign-key probe of the TPC-H joins to come (Q3, Q5, Q10, Q12, Q18,
+    Q21), all of l_orderkey into the sorted o_orderkey, in table order
+    (clustered) and in a fixed random order (seed 0)."""
     ds = runner.datasource
     li = ds.scan("lineitem", ("l_orderkey", "l_partkey", "l_shipdate"))
     part = ds.scan("part", ("p_partkey",))
+    orders = ds.scan("orders", ("o_orderkey",))
     ship = li.cols["l_shipdate"].values
     okey = li.cols["l_orderkey"].values.contiguous()
     mask = (ship <= days("1998-09-02")).contiguous()
     window = (ship >= days("1995-09-01")) & (ship < days("1995-10-01"))
-    probes = li.cols["l_partkey"].values[window].contiguous()
-    keys = torch.sort(part.cols["p_partkey"].values).values.contiguous()
-    n_valid = torch.tensor(keys.shape[0], device=keys.device)
-    return (okey, mask), (keys, probes, n_valid)
+    pkeys = torch.sort(part.cols["p_partkey"].values).values.contiguous()
+    okeys = torch.sort(orders.cols["o_orderkey"].values).values.contiguous()
+    perm = torch.randperm(okey.shape[0], generator=torch.Generator(
+        device="cpu").manual_seed(0)).to(okey.device)
+    probe_shapes = {
+        "q14_path": (pkeys, li.cols["l_partkey"].values[window].contiguous()),
+        "lineitem_orders_clustered": (okeys, okey),
+        "lineitem_orders_shuffled": (okeys, okey[perm].contiguous())}
+    return (okey, mask), {
+        name: (keys, probes, torch.tensor(keys.shape[0], device=keys.device))
+        for name, (keys, probes) in probe_shapes.items()}
 
 
-def measure(torch, CK, ms_inputs, sp_inputs):
-    okey, mask = ms_inputs
-    keys, probes, n_valid = sp_inputs
-    n, p, k = okey.shape[0], probes.shape[0], keys.shape[0]
-    out = {
-        "masked_sum": dict(
-            max_abs_err=check_masked_sum(torch, CK, okey, mask, "path"),
-            ms=median_ms(torch, lambda: CK.masked_sum(okey, mask)),
-            plain_ms=median_ms(torch, lambda: CK.masked_sum_plain(okey, mask)),
-            library_ms=median_ms(torch, lambda: torch.where(mask, okey, 0)
-                                 .sum()),
-            bound_ms=(9 * n + 8) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            shape=f"N={n} int64 values + bool mask"),
-        "sorted_probe": dict(
-            max_abs_err=check_sorted_probe(torch, CK, keys, probes, n_valid,
-                                           "path"),
-            ms=median_ms(torch, lambda: CK.sorted_probe(keys, probes,
-                                                        n_valid)),
-            plain_ms=median_ms(torch, lambda: CK.sorted_probe_plain(
-                keys, probes, n_valid)),
-            library_ms=median_ms(torch, lambda: torch.searchsorted(
-                keys[:k], probes, side="left")),
-            bound_ms=(12 * p + 8 * k + 8) / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes",
-            shape=f"n={k} sorted int64 keys, P={p} int64 probes"),
-    }
-    return out
+def measure_masked_sum(torch, CK, okey, mask) -> dict:
+    n = okey.shape[0]
+    fns = {"kernel": lambda: CK.masked_sum(okey, mask),
+           "plain": lambda: CK.masked_sum_plain(okey, mask),
+           "library": lambda: torch.where(mask, okey, 0).sum()}
+    calls = call_ms(torch, fns)
+    dev = device_ms(torch, {k: fns[k] for k in ("kernel", "library")})
+    return dict(
+        shape=f"N={n} int64 values + bool mask",
+        max_abs_err=check_masked_sum(torch, CK, okey, mask, "path"),
+        call_ms=calls["kernel"], device_ms=dev["kernel"],
+        plain_ms=calls["plain"], library_ms=calls["library"],
+        library_device_ms=dev["library"],
+        bound_ms=(9 * n + 8) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def measure_sorted_probe(torch, CK, name, keys, probes, n_valid) -> dict:
+    p, k = probes.shape[0], keys.shape[0]
+    fns = {"kernel": lambda: CK.sorted_probe(keys, probes, n_valid),
+           "plain": lambda: CK.sorted_probe_plain(keys, probes, n_valid),
+           "library": lambda: torch.searchsorted(keys[:k], probes,
+                                                 side="left")}
+    calls = call_ms(torch, fns)
+    dev = device_ms(torch, {k: fns[k] for k in ("kernel", "library")})
+    return dict(
+        shape=f"{name}: n={k} sorted int64 keys, P={p} int64 probes",
+        max_abs_err=check_sorted_probe(torch, CK, keys, probes, n_valid,
+                                       name),
+        call_ms=calls["kernel"], device_ms=dev["kernel"],
+        plain_ms=calls["plain"], library_ms=calls["library"],
+        library_device_ms=dev["library"],
+        bound_ms=(12 * p + 8 * k + 8) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
 
 
 # ---------------------------------------------------------------- oracle
@@ -271,7 +401,10 @@ def main() -> int:
     t0 = time.perf_counter()
     CK.build()
     say("build", seconds=round(time.perf_counter() - t0, 3),
-        kernels=sorted(CK.SOURCES))
+        kernels=sorted(CK.SOURCES), ptxas={
+            name: [ln.strip() for ln in log.splitlines()
+                   if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
+            for name, log in CK.BUILD_LOG.items()})
 
     edge_cases(torch, CK, dev)
 
@@ -319,20 +452,28 @@ def main() -> int:
         if v <= 0:
             raise AssertionError(f"{k} never launched on the main path")
 
-    ms_inputs, sp_inputs = path_inputs(torch, runner)
-    stats = measure(torch, CK, ms_inputs, sp_inputs)
+    (okey, mask), probe_inputs = path_inputs(torch, runner)
+    shapes = {"masked_sum": [measure_masked_sum(torch, CK, okey, mask)],
+              "sorted_probe": []}
+    for shape, inputs in probe_inputs.items():
+        s = measure_sorted_probe(torch, CK, shape, *inputs)
+        say("measure", kernel="sorted_probe", **s)
+        shapes["sorted_probe"].append(s)
     kernels = []
     for name in sorted(CK.SOURCES):
-        s = stats[name]
+        s = shapes[name][0]  # the main path's shape
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"presto_tpu_torch/csrc/{CK.SOURCES[name]}",
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "max_abs_err": max(x["max_abs_err"] for x in shapes[name]),
+            "ms": s["call_ms"], "call_ms": s["call_ms"],
+            "device_ms": s["device_ms"], "kernel_ms": s["device_ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            "max_abs_diff_vs_plain": s["max_abs_err"], "kernel_ms": s["ms"],
-            "shape": s["shape"], "card": card})
+            "library_device_ms": s["library_device_ms"],
+            "max_abs_diff_vs_plain": s["max_abs_err"],
+            "shape": s["shape"], "shapes": shapes[name], "card": card})
     say("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

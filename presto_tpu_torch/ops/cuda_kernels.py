@@ -16,18 +16,21 @@ raises.  There is no switch that routes a CUDA tensor elsewhere.
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface (one ``nvcc`` per source, all
 started together), cached under ``build/kernels/`` at the repository root
-by a hash of the source and the flags, and loaded with ``ctypes``.
+by a hash of the source and the flags, and loaded with ``ctypes``.  Each
+launch function is looked up once; after the first build a wrapper takes
+no lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,14 +41,23 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
 
 SOURCES = {"masked_sum": "masked_sum.cu", "sorted_probe": "sorted_probe.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # launches of each kernel since the last reset_launches() — the proof that
 # a run went through the kernels and not their plain versions
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# nvcc's output (with -Xptxas -v: registers, shared memory, spills) of each
+# source this process compiled
+BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_launch: Dict[str, ctypes._CFuncPtr] = {}  # the C launch functions
+_sms: Dict[int, int] = {}                  # SM count by device index
+# sorted_probe takes its arguments in one int64 array: ctypes then converts
+# one pointer per call instead of eleven numbers; one array per thread
+_ProbeArgs = ctypes.c_longlong * 11
+_tls = threading.local()
 
 
 def reset_launches() -> None:
@@ -86,39 +98,73 @@ def build() -> Dict[str, ctypes.CDLL]:
         failed = []
         for name, (so, tmp, proc) in procs.items():
             out, _ = proc.communicate()
+            BUILD_LOG[name] = out.decode(errors="replace")
             if proc.returncode != 0:
-                failed.append(f"{SOURCES[name]}:\n{out.decode(errors='replace')}")
+                failed.append(f"{SOURCES[name]}:\n{BUILD_LOG[name]}")
             else:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         libs = {name: ctypes.CDLL(_lib_path(name)) for name in SOURCES}
         vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-        libs["masked_sum"].masked_sum_launch.argtypes = [vp, vp, i64, vp, vp]
-        libs["masked_sum"].masked_sum_launch.restype = ctypes.c_int
-        libs["sorted_probe"].sorted_probe_launch.argtypes = [
-            vp, i64, vp, vp, i64, vp, vp]
-        libs["sorted_probe"].sorted_probe_launch.restype = ctypes.c_int
+        fns = {"masked_sum": (libs["masked_sum"].masked_sum_launch,
+                              [vp, vp, i64, vp, vp]),
+               "sorted_probe": (libs["sorted_probe"].sorted_probe_launch,
+                                [_ProbeArgs])}
+        for name, (fn, argtypes) in fns.items():
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _launch[name] = fn
         _libs.update(libs)
         return _libs
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}"
-                         ": expected all on one CUDA device, or all on the CPU")
-    return True
+def _launcher(name: str):
+    """The C launch function of kernel ``name``, built on first use; no
+    lock once it is loaded."""
+    fn = _launch.get(name)
+    if fn is None:
+        build()
+        fn = _launch[name]
+    return fn
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
-    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous 1-D {dtype} tensor, "
-                         f"got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
+def _stream(index: int) -> int:
+    # the current stream's raw handle: what torch.cuda.current_stream(index)
+    # .cuda_stream gives, without making a Stream object on every launch
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _sm_count(index: int) -> int:
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
+
+
+def _card_index(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The CUDA device index of two tensors on one card, -1 for two CPU
+    tensors; raises otherwise."""
+    index = a.get_device()  # -1 on the CPU
+    if b.get_device() == index and (a.is_cuda if index >= 0 else
+                                    a.device.type == b.device.type == "cpu"):
+        return index
+    raise ValueError(f"tensors on {a.device} and {b.device}: expected both "
+                     "on one CUDA device, or both on the CPU")
+
+
+def _check(a: torch.Tensor, a_dtype: torch.dtype, b: torch.Tensor,
+           b_dtype: torch.dtype, names: Tuple[str, str]) -> None:
+    """Both tensors 1-D, contiguous and of their types; raises otherwise."""
+    if (a.dtype == a_dtype and b.dtype == b_dtype and a.dim() == 1
+            and b.dim() == 1 and a.is_contiguous() and b.is_contiguous()):
+        return
+    for t, dtype, name in ((a, a_dtype, names[0]), (b, b_dtype, names[1])):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous 1-D {dtype} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)} "
+                             f"contiguous={t.is_contiguous()}")
 
 
 def _raise_on(rc: int, kernel: str) -> None:
@@ -135,20 +181,19 @@ def masked_sum_plain(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Σ ``values`` where ``mask`` as a 0-d int64 tensor, exact mod 2^64."""
-    _check(values, "values", torch.int64)
-    _check(mask, "mask", torch.bool)
-    if mask.shape != values.shape:
+    _check(values, torch.int64, mask, torch.bool, ("values", "mask"))
+    n = values.shape[0]
+    if mask.shape[0] != n:
         raise ValueError(f"mask {tuple(mask.shape)} vs values "
                          f"{tuple(values.shape)}")
-    if not _on_card(values, mask):
+    index = _card_index(values, mask)
+    if index < 0:
         return masked_sum_plain(values, mask)
-    out = torch.zeros((1,), dtype=torch.int64, device=values.device)
-    n = values.shape[0]
+    out = values.new_zeros((1,))
     if n:
-        lib = build()["masked_sum"]
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        _raise_on(lib.masked_sum_launch(values.data_ptr(), mask.data_ptr(), n,
-                                        out.data_ptr(), stream), "masked_sum")
+        _raise_on(_launcher("masked_sum")(
+            values.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
+            _stream(index)), "masked_sum")
         LAUNCHES["masked_sum"] += 1
     return out[0]
 
@@ -184,23 +229,81 @@ def sorted_probe_plain(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
     return lo.to(torch.int32)
 
 
+SAMPLE_LOG2 = (0, 8)  # the sample sizes the plan picks: 1 .. 256 keys
+
+
+def sorted_probe_plan(p: int, sms: int) -> Tuple[int, int, int]:
+    """Launch of ``sorted_probe`` for ``p`` probes on a card of ``sms`` SMs:
+    (blocks, threads, sample_log2), one search a thread at a time.
+
+    With at least two 1024-thread blocks' worth of probes for every SM, a
+    persistent grid of one block of 1024 threads per SM; with fewer,
+    128-thread blocks, so that every SM gets searches.  The sample is the
+    power of two nearest below half the block's probes, at most 256 keys:
+    each block stages its sample from L2, and past that size a sample cost
+    more than it saved the interpolating search (PERF.md)."""
+    if p >= 2 * sms * 1024:
+        blocks, threads = sms, 1024
+    else:
+        threads = 128
+        blocks = max(1, -(-p // threads))
+    per_block = -(-p // blocks)
+    sample_log2 = min(SAMPLE_LOG2[1], max(SAMPLE_LOG2[0],
+                                          per_block.bit_length() - 2))
+    return blocks, threads, sample_log2
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(p: int, index: int) -> Tuple[int, int, int]:
+    return sorted_probe_plan(p, _sm_count(index))
+
+
+def _new_probe_args() -> ctypes.Array:
+    _tls.probe_args = _ProbeArgs()
+    return _tls.probe_args
+
+
+def _n_valid_arg(n_valid, index: int):
+    """``n_valid`` as the kernel takes it: (tensor to keep alive, device
+    pointer or 0, value).  A one-element int64 tensor on the probes' card
+    passes its pointer; another CUDA tensor is converted on the card (no
+    wait); an int or a CPU tensor passes its value."""
+    if not isinstance(n_valid, torch.Tensor):
+        return None, 0, int(n_valid)
+    if n_valid.numel() != 1:
+        raise ValueError(f"n_valid: expected one element, got "
+                         f"{tuple(n_valid.shape)}")
+    where = n_valid.get_device()
+    if where < 0:
+        return None, 0, int(n_valid)
+    if where != index or n_valid.dtype != torch.int64:
+        n_valid = n_valid.reshape(1).to(device=torch.device("cuda", index),
+                                        dtype=torch.int64)
+    return n_valid, n_valid.data_ptr(), 0
+
+
 def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
                  n_valid) -> torch.Tensor:
     """Lower-bound positions (int32 [P]) of ``probe_keys`` in
     ``sorted_keys[:n_valid]``; ``n_valid`` is an int or a one-element
-    tensor (read on the device, so the caller does not wait for it)."""
-    _check(sorted_keys, "sorted_keys", torch.int64)
-    _check(probe_keys, "probe_keys", torch.int64)
-    if not _on_card(sorted_keys, probe_keys):
+    tensor (a CUDA tensor is read on the device, so the caller does not
+    wait for it)."""
+    _check(sorted_keys, torch.int64, probe_keys, torch.int64,
+           ("sorted_keys", "probe_keys"))
+    index = _card_index(sorted_keys, probe_keys)
+    if index < 0:
         return sorted_probe_plain(sorted_keys, probe_keys, n_valid)
-    nv = _n_valid_tensor(n_valid, sorted_keys.device)
-    p = probe_keys.shape[0]
-    out = torch.empty((p,), dtype=torch.int32, device=probe_keys.device)
+    cap, p = sorted_keys.shape[0], probe_keys.shape[0]
+    if cap >= 2**31:
+        raise ValueError(f"sorted_keys: {cap} keys, int32 positions need "
+                         "fewer than 2^31")
+    nv, nv_ptr, nv_value = _n_valid_arg(n_valid, index)
+    out = probe_keys.new_empty(p, dtype=torch.int32)
     if p:
-        lib = build()["sorted_probe"]
-        stream = torch.cuda.current_stream(probe_keys.device).cuda_stream
-        _raise_on(lib.sorted_probe_launch(
-            sorted_keys.data_ptr(), sorted_keys.shape[0], nv.data_ptr(),
-            probe_keys.data_ptr(), p, out.data_ptr(), stream), "sorted_probe")
+        args = getattr(_tls, "probe_args", None) or _new_probe_args()
+        args[:] = (sorted_keys.data_ptr(), cap, nv_ptr, nv_value,
+                   probe_keys.data_ptr(), p, out.data_ptr(),
+                   *_plan(p, index), _stream(index))
+        _raise_on(_launcher("sorted_probe")(args), "sorted_probe")
         LAUNCHES["sorted_probe"] += 1
     return out

@@ -53,6 +53,53 @@ def test_sorted_probe_equals_plain(card, n_valid):
         got.cpu().numpy(), CK.sorted_probe_plain(keys, probe, n_valid).numpy())
 
 
+def _edge_keys(rng, runs, n_valid, n=200_000):
+    """200k sorted keys (random, or in runs of ~5,000 equal keys that
+    cross every sample position), int64 garbage beyond ``n_valid``."""
+    keys = np.sort(rng.integers(0, 40, size=n) * 1000 if runs
+                   else rng.integers(-10**12, 10**12, size=n))
+    keys[n_valid:] = rng.integers(-2**63, 2**63 - 1, size=n - n_valid,
+                                  dtype=np.int64)
+    return keys.astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [False, True])
+@pytest.mark.parametrize("p", [1, 255, 257, 1_000_000])
+@pytest.mark.parametrize("n_valid", ["0", "1", "2", "S-1", "S", "S+1",
+                                     "123457", "200000"])
+def test_sorted_probe_edges_equal_plain(card, runs, p, n_valid):
+    """The two-level search at every edge of its sample: n_valid around
+    the sample size S that the launch plan picks for P probes, probes on
+    the sampled keys (and one off), int64 min/max, garbage past n_valid."""
+    _, _, sample_log2 = CK.sorted_probe_plan(
+        p, torch.cuda.get_device_properties(card).multi_processor_count)
+    s = 1 << sample_log2
+    nv = {"S-1": s - 1, "S": s, "S+1": s + 1}[n_valid] \
+        if n_valid.startswith("S") else int(n_valid)
+    rng = np.random.default_rng(nv * 8 + p % 7 + runs)
+    keys = _edge_keys(rng, runs, nv)
+    sampled = keys[((np.arange(s) + 1) * nv >> sample_log2) - 1] \
+        if nv > s else keys[:nv]
+    pool = np.concatenate([[-2**63, 2**63 - 1], sampled, sampled - 1,
+                           sampled + 1, rng.integers(-2 * 10**12,
+                                                     2 * 10**12, 4096)])
+    probe = rng.choice(pool, p)
+    probe[:min(p, 2)] = pool[:min(p, 2)]
+    keys_t, probe_t = torch.from_numpy(keys), torch.from_numpy(probe)
+    before = CK.LAUNCHES["sorted_probe"]
+    got = CK.sorted_probe(keys_t.to(card), probe_t.to(card),
+                          torch.tensor(nv, device=card))
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["sorted_probe"] == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), CK.sorted_probe_plain(keys_t, probe_t, nv).numpy())
+    # the by-value form of n_valid gives the same positions
+    np.testing.assert_array_equal(
+        CK.sorted_probe(keys_t.to(card), probe_t.to(card), nv).cpu().numpy(),
+        got.cpu().numpy())
+
+
 @pytest.mark.cuda
 def test_lookup_on_card_launches_sorted_probe(card):
     """A single-key lookup of a table on the card goes through the kernel

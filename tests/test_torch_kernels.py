@@ -111,6 +111,152 @@ def test_sorted_probe_plain_equals_pallas(n_keys, n_valid, no_launches):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _runs_case(seed, n_keys, n_valid):
+    """Keys in long runs of equal values (runs cross every sample position
+    of the CUDA kernel's two-level search), garbage beyond n_valid, and
+    probes on, between and beyond the runs."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(-6, 6, size=n_keys) * 1000).astype(np.int64)
+    keys[n_valid:] = rng.integers(-2**63, 2**63 - 1, size=n_keys - n_valid,
+                                  dtype=np.int64)
+    probe = np.concatenate([
+        np.arange(-7, 7) * 1000, np.arange(-7, 7) * 1000 + 1,
+        rng.integers(-8000, 8000, 100),
+        [-2**63, 2**63 - 1]]).astype(np.int64)
+    return keys, probe
+
+
+@pytest.mark.parametrize("n_valid", [255, 256, 257, 511, 512, 513, 600])
+def test_sorted_probe_plain_equals_pallas_runs_of_duplicates(n_valid,
+                                                              no_launches):
+    """Duplicate-heavy keys with n_valid at and around powers of two."""
+    keys, probe = _runs_case(n_valid, 600, n_valid)
+    want = n(PK.sorted_probe(jnp.asarray(keys), jnp.asarray(probe), n_valid,
+                             interpret=True))
+    np.testing.assert_array_equal(
+        want, np.searchsorted(keys[:n_valid], probe, side="left"))
+    got = CK.sorted_probe(t(keys), t(probe), n_valid)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _two_level_lower_bound(keys, n_valid, probe, sample_log2):
+    """numpy model of the CUDA kernel's search (``csrc/sorted_probe.cu``):
+    a lower bound in an evenly spaced sample, then a search of the one
+    bucket that must hold the answer, reading where the probe would lie if
+    the keys rose evenly (guessed in float32 from exact 64-bit
+    differences) and bisecting after a read that did not halve the range."""
+    size = 1 << sample_log2
+    whole = n_valid <= size
+    m = n_valid if whole else size
+
+    def pos(j):
+        return j if whole else (((j + 1) * n_valid) >> sample_log2) - 1
+
+    sample = keys[[pos(j) for j in range(m)]]
+    out = []
+    for x in probe.tolist():
+        b = int(np.searchsorted(sample, x, side="left"))
+        lo = 0 if b == 0 else pos(b - 1) + 1
+        hi = n_valid if b == m else pos(b)
+        klo = int(sample[b - 1]) if b > 0 else 0
+        khi = int(sample[b]) if b < m else 0
+        bounded = 0 < b < m
+        interp = bounded
+        while lo < hi:
+            length = hi - lo
+            g = lo + (length >> 1)
+            if interp:
+                f = np.float32((x - klo) % 2**64) / np.float32(
+                    (khi - klo) % 2**64)
+                g = lo + int(min(f * np.float32(length),
+                                 np.float32(length - 1)))
+            v = int(keys[g])
+            if v < x:
+                lo, klo = g + 1, v
+            else:
+                hi, khi = g, v
+            interp = bounded and hi - lo <= length >> 1
+        out.append(lo)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("sample_log2,n_valid", [
+    (8, 0), (8, 1), (8, 2), (8, 255), (8, 256), (8, 257), (8, 600),
+    (7, 127), (7, 129), (4, 600), (0, 1), (0, 2), (0, 600)])
+@pytest.mark.parametrize("spread", ["runs", "int64"])
+def test_two_level_search_model_equals_searchsorted(sample_log2, n_valid,
+                                                    spread):
+    """The bucket rule and the interpolating search stay exact under runs
+    of equal keys that cross sample positions, keys over the whole int64
+    range, probes equal to sampled keys and int64 extremes, and never read
+    at or beyond n_valid (garbage there)."""
+    keys, probe = _runs_case(7, 600, n_valid)
+    if spread == "int64":
+        rng = np.random.default_rng(n_valid)
+        keys[:n_valid] = np.sort(rng.integers(-2**63, 2**63 - 1,
+                                              size=n_valid, dtype=np.int64))
+        probe = np.concatenate([probe, keys[:n_valid], keys[:n_valid] + 1,
+                                rng.integers(-2**63, 2**63 - 1, size=100,
+                                             dtype=np.int64)])
+    size = 1 << sample_log2
+    if n_valid > size:  # the sampled keys themselves, and one off
+        sampled = keys[(((np.arange(size) + 1) * n_valid) >> sample_log2)
+                       - 1]
+        probe = np.concatenate([probe, sampled, sampled + 1])
+    guarded = keys[:n_valid]  # an index at or past n_valid raises
+    np.testing.assert_array_equal(
+        _two_level_lower_bound(guarded, n_valid, probe, sample_log2),
+        np.searchsorted(guarded, probe, side="left"))
+
+
+@pytest.mark.parametrize("p", [1, 2, 127, 255, 257, 75_143, 270_335,
+                               270_336, 1_000_000, 6_002_590, 2**31 - 1])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_sorted_probe_plan_covers_every_probe(p, sms):
+    blocks, threads, sample_log2 = CK.sorted_probe_plan(p, sms)
+    assert CK.SAMPLE_LOG2[0] <= sample_log2 <= CK.SAMPLE_LOG2[1]
+    if p >= 2 * sms * 1024:  # persistent: one 1024-thread block per SM
+        assert (blocks, threads) == (sms, 1024)
+    else:  # one search a thread, every probe in the first pass
+        assert threads == 128
+        assert blocks * threads >= p > (blocks - 1) * threads
+    # the sample: the power of two at or below half the block's probes,
+    # at most 256 keys
+    per_block = -(-p // blocks)
+    assert (1 << sample_log2) <= max(per_block // 2, 1)
+    assert sample_log2 == CK.SAMPLE_LOG2[1] == 8 or \
+        per_block < 4 << sample_log2
+
+
+def test_sorted_probe_n_valid_forms_on_the_host():
+    """An int or a CPU tensor is passed by value; a tensor of several
+    elements is refused; all forms give the same positions."""
+    assert CK._n_valid_arg(317, 0) == (None, 0, 317)
+    assert CK._n_valid_arg(torch.tensor(317), 0) == (None, 0, 317)
+    assert CK._n_valid_arg(torch.tensor([317], dtype=torch.int32), 0) == \
+        (None, 0, 317)
+    with pytest.raises(ValueError):
+        CK._n_valid_arg(torch.tensor([1, 2]), 0)
+    keys, probe = _probe_case(3, 500, 317)
+    want = np.searchsorted(keys[:317], probe, side="left")
+    for nv in (317, torch.tensor(317), torch.tensor([317], dtype=torch.int32)):
+        np.testing.assert_array_equal(
+            CK.sorted_probe(t(keys), t(probe), nv).numpy(), want)
+
+
+def test_sorted_probe_rejects_bad_inputs():
+    keys = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        CK.sorted_probe(keys, torch.zeros(4, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        CK.sorted_probe(keys.reshape(2, 2), keys, 4)
+    with pytest.raises(ValueError):
+        CK.sorted_probe(torch.zeros(8, dtype=torch.int64)[::2], keys, 4)
+    with pytest.raises(ValueError):  # one tensor off the CPU, not on a card
+        CK.sorted_probe(keys, torch.zeros(4, dtype=torch.int64,
+                                          device="meta"), 4)
+
+
 # ---------------------------------------------------------------- hashtable
 
 def _tables(keys_np, mask_np):

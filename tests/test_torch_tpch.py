@@ -169,7 +169,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "BAD=\n" in proc.stdout, proc.stdout
     sources = [os.path.join(ROOT, "chip_smoke.py"),
-               os.path.join(ROOT, "tools", "torch_query_profile.py")]
+               os.path.join(ROOT, "tools", "torch_query_profile.py"),
+               os.path.join(ROOT, "tools", "sorted_probe_sweep.py"),
+               os.path.join(ROOT, "tools", "q14_probe_ab.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "presto_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     offenders = []
