@@ -11,13 +11,18 @@ non-zero without printing a result):
 3. kernels: each kernel's wrapper on card tensors, exactly equal to its
    plain PyTorch version at edge cases;
 4. queries: ``LocalRunner(scale_factor=1.0)`` on cuda runs TPC-H Q1, Q6,
-   Q14 and a BIGINT sum through ``run_sql`` (one warm-up, then 5 timed
-   runs each), every result equal to a numpy oracle over the same
-   generated tables; the kernels' launch counts are reset just before and
-   read just after, and each kernel must have launched;
+   Q14, a BIGINT sum and the join queries Q2, Q3, Q4, Q5, Q10, Q17, Q18
+   and Q21 through ``run_sql`` (one warm-up, then 5 timed runs each),
+   every result equal to a numpy oracle over the same generated tables
+   (``tools/np_tpch_oracle.py``); the kernels' launch
+   counts are reset just before and read just after, each kernel must
+   have launched, and ``sorted_probe`` must have launched in Q3, Q4 and
+   Q21;
 5. measure: each kernel, exactly equal to its plain version, at the
-   shapes the main path gives it (``sorted_probe`` also at SF1's
-   lineitem -> orders probe, clustered and shuffled), timed two ways,
+   shapes the main path gives it (``sorted_probe`` at Q14's launch, at
+   the largest launch of Q3 and at the largest launch of Q4 and Q21 into
+   a build with repeated keys, captured from a run of the query; also at
+   SF1's lineitem -> orders probe, clustered and shuffled), timed two ways,
    each the median of 20 samples with the kernel, its plain version and
    the library call in turns:
    - call time (``call_ms``, also ``ms``): CUDA events around 10
@@ -37,7 +42,6 @@ no ``presto_tpu_torch`` package.
 
 from __future__ import annotations
 
-import datetime as dt
 import json
 import os
 import statistics
@@ -45,16 +49,19 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SAMPLES = 20               # timing samples per measurement (median kept)
 CALLS = 10                 # back-to-back calls per timing sample
 TIMED_RUNS = 5             # timed runs per query after one warm-up
 SF = 1.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 
 BIGINT_SUM = ("SELECT sum(l_orderkey) AS s, count(*) AS c FROM lineitem "
               "WHERE l_shipdate <= DATE '1998-09-02'")
+JOIN_QUERIES = (2, 3, 4, 5, 10, 17, 18, 21)
+PROBED = ("q3", "q4", "q21")  # join queries that must launch sorted_probe
 REPLACES = {"masked_sum": "presto_tpu/ops/pallas_kernels.py:103",
             "sorted_probe": "presto_tpu/ops/pallas_kernels.py:196"}
 
@@ -171,9 +178,10 @@ def sample_positions(n_valid: int, size: int):
 
 
 def probe_edge_cases(torch, CK, dev, gen) -> int:
-    """``sorted_probe`` against its plain version on a table of random keys
-    and one of long runs of equal keys (runs of ~5,000 cross every sample
-    position), at every n_valid in {0, 1, 2, 123457, 200000} and S-1, S,
+    """``sorted_probe`` against its plain version on a table of random keys,
+    one of long runs of equal keys (runs of ~5,000 cross every sample
+    position) and one where every key repeats 2-7 times (a non-unique
+    build's runs, crossing sample positions), at every n_valid in {0, 1, 2, 123457, 200000} and S-1, S,
     S+1 for every sample size S, with garbage beyond n_valid, probes equal
     to (and one off) the sampled keys, random probes and int64 min/max, P
     in {1, 255, 257, 1M}; n_valid passed as an int, an int64 device scalar
@@ -184,7 +192,11 @@ def probe_edge_cases(torch, CK, dev, gen) -> int:
                                         CK.SAMPLE_LOG2[1] + 1))
     tables = {
         "random": torch.randint(-10**12, 10**12, (n,), generator=gen),
-        "runs": torch.randint(0, 40, (n,), generator=gen) * 1000 - 20_000}
+        "runs": torch.randint(0, 40, (n,), generator=gen) * 1000 - 20_000,
+        # every key repeats 2-7 times, as l_orderkey does in lineitem
+        "repeats": torch.repeat_interleave(
+            torch.arange(n) * 3 - n,
+            torch.randint(2, 8, (n,), generator=gen))[:n]}
     n_valids = sorted({0, 1, 2, 123_457, n} | {
         s + d for s in sizes for d in (-1, 0, 1)})
     checks = 0
@@ -232,8 +244,8 @@ def edge_cases(torch, CK, dev) -> None:
     say("kernels", kernel="masked_sum", edge_cases="n in 0,1,8191,6M x "
         "density 0,0.4,1, |v| < 2^62", max_abs_err=0)
     checks = probe_edge_cases(torch, CK, dev, gen)
-    say("kernels", kernel="sorted_probe", edge_cases="random and "
-        "long-run keys (n=200k), garbage beyond n_valid, n_valid in "
+    say("kernels", kernel="sorted_probe", edge_cases="random, long-run "
+        "and every-key-repeats keys (n=200k), garbage beyond n_valid, n_valid in "
         "0,1,2,123457,200000 and S-1,S,S+1 for every sample size S, "
         "probes = sampled keys +-1, random, int64 min/max, P in "
         "1,255,257,1M", checks=checks, max_abs_err=0)
@@ -243,10 +255,11 @@ def path_inputs(torch, runner):
     """The kernels' inputs as the main path forms them, at SF1: the BIGINT
     sum's l_orderkey column with its filter mask (masked_sum); Q14's
     sorted part keys against the lineitem part keys of its month
-    (sorted_probe, the main path's shape); and the lineitem -> orders
-    foreign-key probe of the TPC-H joins to come (Q3, Q5, Q10, Q12, Q18,
-    Q21), all of l_orderkey into the sorted o_orderkey, in table order
-    (clustered) and in a fixed random order (seed 0)."""
+    (sorted_probe, Q14's launch); and the unfiltered form of the
+    lineitem -> orders foreign-key probe of Q3, Q5, Q10, Q18 and Q21, all
+    of l_orderkey into the sorted o_orderkey, in table order (clustered)
+    and in a fixed random order (seed 0)."""
+    from np_tpch_oracle import days
     ds = runner.datasource
     li = ds.scan("lineitem", ("l_orderkey", "l_partkey", "l_shipdate"))
     part = ds.scan("part", ("p_partkey",))
@@ -284,99 +297,56 @@ def measure_masked_sum(torch, CK, okey, mask) -> dict:
         bound_ms=(9 * n + 8) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
+def largest_probe(torch, CK, runner, sql, repeated: bool):
+    """The inputs of the ``sorted_probe`` launch with the most probes that
+    one run of ``sql`` makes into a build whose valid keys repeat
+    (``repeated``) or are unique, copied as the main path gave them
+    (through ``CK.set_probe_recorder``), or None when there was no such
+    launch."""
+    best = {}
+
+    def record(keys, probes, n_valid):
+        nv = int(n_valid)
+        if bool((keys[1:nv] == keys[:max(nv - 1, 0)]).any()) == repeated \
+                and probes.shape[0] > best.get("p", -1):
+            best.update(p=probes.shape[0], inputs=(
+                keys.clone(), probes.clone(),
+                torch.tensor(nv, device=keys.device)))
+
+    CK.set_probe_recorder(record)
+    try:
+        runner.run_sql(sql)
+    finally:
+        CK.set_probe_recorder(None)
+    return best.get("inputs")
+
+
+def probe_bound_ms(p: int, nv: int) -> float:
+    """Least time of a lower-bound search of ``p`` probes into ``nv`` valid
+    keys: the probes read (8 bytes each) and the positions written (4
+    bytes each) once, and of the keys at most one 32-byte sector per probe,
+    never more than the whole table (plus the 8-byte n_valid)."""
+    key_bytes = 8 * min(nv, 4 * p)
+    return (12 * p + key_bytes + 8) / HBM_BYTES_PER_S * 1e3
+
+
 def measure_sorted_probe(torch, CK, name, keys, probes, n_valid) -> dict:
-    p, k = probes.shape[0], keys.shape[0]
+    p, k, nv = probes.shape[0], keys.shape[0], int(n_valid)
     fns = {"kernel": lambda: CK.sorted_probe(keys, probes, n_valid),
            "plain": lambda: CK.sorted_probe_plain(keys, probes, n_valid),
-           "library": lambda: torch.searchsorted(keys[:k], probes,
+           "library": lambda: torch.searchsorted(keys[:nv], probes,
                                                  side="left")}
     calls = call_ms(torch, fns)
     dev = device_ms(torch, {k: fns[k] for k in ("kernel", "library")})
     return dict(
-        shape=f"{name}: n={k} sorted int64 keys, P={p} int64 probes",
+        shape=f"{name}: n={k} sorted int64 keys ({nv} valid), "
+              f"P={p} int64 probes",
         max_abs_err=check_sorted_probe(torch, CK, keys, probes, n_valid,
                                        name),
         call_ms=calls["kernel"], device_ms=dev["kernel"],
         plain_ms=calls["plain"], library_ms=calls["library"],
         library_device_ms=dev["library"],
-        bound_ms=(12 * p + 8 * k + 8) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
-
-
-# ---------------------------------------------------------------- oracle
-
-def days(iso: str) -> int:
-    return (dt.date.fromisoformat(iso) - dt.date(1970, 1, 1)).days
-
-
-def div_half_up(num: int, den: int) -> int:
-    sign = -1 if (num < 0) != (den < 0) else 1
-    q, r = divmod(abs(num), abs(den))
-    return sign * (q + (2 * r >= abs(den)))
-
-
-def oracle(ds) -> dict:
-    """The four requests in numpy over the port's own host tables, with
-    exact integer arithmetic (every int64 sum here stays below 2^63 at
-    SF1; products that could not are taken in python ints)."""
-    li = ds.read_host("lineitem", (
-        "l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
-        "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"))
-    part = ds.read_host("part", ("p_partkey", "p_type"))
-    col = {k: np.asarray(c.values) for k, c in li.items()}
-    ship, ep, disc = col["l_shipdate"], col["l_extendedprice"], \
-        col["l_discount"]
-    out = {}
-
-    m = ship <= days("1998-12-01") - 90
-    rf_d, ls_d = li["l_returnflag"].dictionary, li["l_linestatus"].dictionary
-    gid = col["l_returnflag"][m].astype(np.int64) * len(ls_d) \
-        + col["l_linestatus"][m]
-    disc_price = ep[m] * (100 - disc[m])
-    fields = {"sum_qty": col["l_quantity"][m], "sum_base_price": ep[m],
-              "sum_disc_price": disc_price,
-              "sum_charge": disc_price * (100 + col["l_tax"][m]),
-              "disc": disc[m]}
-    groups = sorted(np.unique(gid).tolist(),
-                    key=lambda g: (str(rf_d[g // len(ls_d)]),
-                                   str(ls_d[g % len(ls_d)])))
-    q1 = {k: [] for k in ("l_returnflag", "l_linestatus", "sum_qty",
-                          "sum_base_price", "sum_disc_price", "sum_charge",
-                          "avg_qty", "avg_price", "avg_disc", "count_order")}
-    for g in groups:
-        sel = gid == g
-        cnt = int(sel.sum())
-        s = {k: int(v[sel].sum()) for k, v in fields.items()}
-        q1["l_returnflag"].append(str(rf_d[g // len(ls_d)]))
-        q1["l_linestatus"].append(str(ls_d[g % len(ls_d)]))
-        for k in ("sum_qty", "sum_base_price", "sum_disc_price",
-                  "sum_charge"):
-            q1[k].append(s[k])
-        q1["avg_qty"].append(div_half_up(s["sum_qty"], cnt))
-        q1["avg_price"].append(div_half_up(s["sum_base_price"], cnt))
-        q1["avg_disc"].append(div_half_up(s["disc"], cnt))
-        q1["count_order"].append(cnt)
-    out["q1"] = q1
-
-    m = ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
-         & (disc >= 5) & (disc <= 7) & (col["l_quantity"] < 2400))
-    out["q6"] = {"revenue": [int((ep[m] * disc[m]).sum())]}
-
-    m = (ship >= days("1995-09-01")) & (ship < days("1995-10-01"))
-    pkey = np.asarray(part["p_partkey"].values)
-    order = np.argsort(pkey, kind="stable")
-    pos = order[np.searchsorted(pkey[order], col["l_partkey"][m])]
-    promo_code = np.array([str(s).startswith("PROMO")
-                           for s in part["p_type"].dictionary])
-    promo = promo_code[np.asarray(part["p_type"].values)[pos]]
-    rev = ep[m] * (100 - disc[m])
-    out["q14"] = {"promo_revenue": [div_half_up(
-        10000 * int(rev[promo].sum()) * 10**4, int(rev.sum()))]}
-
-    m = ship <= days("1998-09-02")
-    out["bigint_sum"] = {"s": [int(col["l_orderkey"][m].sum())],
-                         "c": [int(m.sum())]}
-    return out
+        bound_ms=probe_bound_ms(p, nv), bound_by="bytes")
 
 
 # ---------------------------------------------------------------- main
@@ -386,7 +356,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import np_tpch_oracle as NO
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.ops import cuda_kernels as CK
     from presto_tpu_torch.tpch.queries import QUERIES
@@ -409,10 +379,11 @@ def main() -> int:
     edge_cases(torch, CK, dev)
 
     requests = {"q1": QUERIES[1], "q6": QUERIES[6], "q14": QUERIES[14],
-                "bigint_sum": BIGINT_SUM}
+                "bigint_sum": BIGINT_SUM,
+                **{f"q{q}": QUERIES[q] for q in JOIN_QUERIES}}
     runner = LocalRunner(scale_factor=SF)
     t0 = time.perf_counter()
-    want = oracle(runner.datasource)
+    want = NO.oracle(runner.datasource, tuple(requests))
     say("oracle", seconds=round(time.perf_counter() - t0, 3))
 
     # the main path: counts reset just before, read just after
@@ -448,11 +419,27 @@ def main() -> int:
         raise AssertionError("Q14 did not launch sorted_probe")
     if per_query["bigint_sum"]["masked_sum"] <= 0:
         raise AssertionError("the BIGINT sum did not launch masked_sum")
+    probed = [q for q in per_query if per_query[q]["sorted_probe"] > 0]
+    say("launch_check", sorted_probe_in=probed, required=list(PROBED))
+    for q in PROBED:
+        if q not in probed:
+            raise AssertionError(f"{q} did not launch sorted_probe")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} never launched on the main path")
 
     (okey, mask), probe_inputs = path_inputs(torch, runner)
+    # the largest launches of the join queries, as the main path forms them
+    q3 = largest_probe(torch, CK, runner, requests["q3"], repeated=False)
+    repeats = [x for x in (largest_probe(torch, CK, runner, requests[q],
+                                         repeated=True)
+                           for q in ("q4", "q21")) if x is not None]
+    if q3 is None or not repeats:
+        raise AssertionError("no sorted_probe launch of Q3, or none into a "
+                             "build with repeated keys in Q4 and Q21")
+    probe_inputs["q3_largest"] = q3
+    probe_inputs["repeated_build_largest"] = max(
+        repeats, key=lambda x: x[1].shape[0])
     shapes = {"masked_sum": [measure_masked_sum(torch, CK, okey, mask)],
               "sorted_probe": []}
     for shape, inputs in probe_inputs.items():

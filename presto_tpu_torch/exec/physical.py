@@ -12,14 +12,14 @@ Operators ↔ reference:
 - PhysScan            ← TableScanOperator + TPC-H connector page source
 - PhysFilter/Project  ← FilterAndProjectOperator
 - PhysHashAggregate   ← HashAggregationOperator
-- PhysHashJoin        ← HashBuilderOperator + LookupJoinOperator (unique
-                        build side: inner/left/semi/anti)
+- PhysHashJoin        ← HashBuilderOperator + LookupJoinOperator: unique
+                        and expanding builds, inner/left/semi/anti/mark/
+                        full, residual filters
 - PhysSort/Limit      ← OrderByOperator / Limit
 
-Not ported yet (they raise ``NotImplementedError``): expanding, mark and
-full joins, windows, MATCH_RECOGNIZE, UNION, UNNEST, GROUPING SETS, scalar
-subqueries, DISTINCT and nested-value aggregates, and the
-partition-at-a-time memory tiers.
+Not ported yet (they raise ``NotImplementedError``): windows,
+MATCH_RECOGNIZE, UNION, UNNEST, GROUPING SETS, scalar subqueries, DISTINCT
+and nested-value aggregates, and the partition-at-a-time memory tiers.
 """
 
 from __future__ import annotations
@@ -117,10 +117,10 @@ def _exec_limit(child: Chunk, n: int) -> Chunk:
 # ---------------------------------------------------------------- keys
 
 def _col_keys(c: DCol) -> List[torch.Tensor]:
-    """One column's key tensors: its int64 values, or both words of a long
-    decimal."""
+    """One column's int64 key tensors: the big-endian packs of a BYTES
+    column, both words of a long decimal, else its values."""
     if c.kind == BYTES:
-        raise NotImplementedError("byte-string keys on the torch path")
+        return SORT.bytes_sort_keys(c.values, c.lengths)
     if c.values.dim() == 2:
         return [w.contiguous() for w in I128.unpack(c.values)]
     return [c.values.to(torch.int64)]
@@ -134,8 +134,8 @@ def _key_arrays(chunk: Chunk, exprs: Sequence) -> List[torch.Tensor]:
 
 def _group_key_arrays(chunk: Chunk, exprs: Sequence) -> List[torch.Tensor]:
     """Key tensors with SQL GROUP BY null semantics: a nullable key adds its
-    validity bit as a key and zeroes the value where invalid, so all NULLs
-    form ONE group distinct from every real value."""
+    validity bit as a key and zeroes every key tensor where invalid, so all
+    NULLs form ONE group distinct from every real value."""
     out: List[torch.Tensor] = []
     for e in exprs:
         c = eval_expr(e, chunk)
@@ -196,26 +196,32 @@ def _insert(chunk: Chunk, exprs, capacity: int):
 # ---------------------------------------------------------------- sort
 
 def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
-    """Sort-key exprs → (integer tensor, descending) pairs.  NULL keys
-    sort after every value (Trino: NULLS LAST ascending, NULLS FIRST
-    descending) by replacing them with +max before the complement."""
+    """Sort-key exprs → (integer tensor, descending) pairs; a BYTES key
+    gives one pair per 8-byte pack, a long decimal two (``sort_keys``).
+    NULL keys sort after every value (Trino: NULLS LAST ascending, NULLS
+    FIRST descending) by replacing every pack of them with +max before the
+    complement."""
     karrs: List[Tuple[torch.Tensor, bool]] = []
     for e, desc in keys:
         c = eval_expr(e, chunk)
-        if c.kind == DICT:
+        if c.kind == BYTES:
+            packs = SORT.bytes_sort_keys(c.values, c.lengths)
+        elif c.values.dim() == 2:  # long decimal: (hi signed, lo unsigned)
+            packs = I128.sort_keys(*I128.unpack(c.values))
+        elif c.kind == DICT:
             # order by string value: host-computed rank of each code
             rank = np.argsort(np.argsort(
                 [str(s) for s in c.dictionary.strings], kind="stable"))
-            p = torch.from_numpy(rank).to(c.values.device)[
-                c.values.to(torch.int64)]
-        elif c.kind == PLAIN and c.values.dim() == 1 \
-                and not c.values.is_floating_point():
-            p = c.values
+            packs = [torch.from_numpy(rank).to(c.values.device)[
+                c.values.to(torch.int64)]]
+        elif not c.values.is_floating_point():
+            packs = [c.values]
         else:
             raise NotImplementedError(f"ORDER BY a {c.kind} {c.dtype} column")
-        if c.validity is not None:
-            p = torch.where(c.validity, p.to(torch.int64), SORT.I64_MAX)
-        karrs.append((p, desc))
+        for p in packs:
+            if c.validity is not None:
+                p = torch.where(c.validity, p.to(torch.int64), SORT.I64_MAX)
+            karrs.append((p, desc))
     return karrs
 
 
@@ -295,8 +301,25 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
             hi, lo, *I128.from_i64(cnt.clamp_min(1)))
         v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
         return DCol(ot, PLAIN, v, validity=gvalid & (cnt > 0))
+    if spec.func in ("arbitrary", "any_value"):
+        # lowest row id of each group, gathered whole: one code path for
+        # every layout (DICT codes, BYTES matrix + lengths, long decimals)
+        n = chunk.n_rows
+        ridx = torch.arange(n, dtype=torch.int64, device=slot.device)
+        widx = A.seg_min(ridx, slot, vmask, capacity)
+        nonempty = A.seg_count(slot, vmask, capacity) > 0
+        return c.take(widx.clamp(max=max(n - 1, 0)), valid=gvalid & nonempty)
+    if spec.func in ("min", "max") and c.kind == PLAIN \
+            and not vals.is_floating_point() and vals.dtype != torch.bool:
+        valid = gvalid & (A.seg_count(slot, vmask, capacity) > 0)
+        if vals.dim() == 2:
+            f = I128.seg_min128 if spec.func == "min" else I128.seg_max128
+            return DCol(ot, PLAIN, I128.pack(*f(vals, slot, vmask, capacity)),
+                        validity=valid)
+        f = A.seg_min if spec.func == "min" else A.seg_max
+        return DCol(ot, PLAIN, f(vals, slot, vmask, capacity), validity=valid)
     raise NotImplementedError(
-        f"grouped {spec.func}({c.dtype}) on the torch path")
+        f"grouped {spec.func}({c.dtype}, {c.kind}) on the torch path")
 
 
 def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
@@ -330,17 +353,38 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
 # ---------------------------------------------------------------- joins
 
 def _exec_join(plan: PhysHashJoin, ctx: ExecContext) -> Chunk:
-    if plan.kind not in ("inner", "left", "semi", "anti") \
-            or not plan.unique_build or plan.filter is not None:
-        raise NotImplementedError(
-            f"{plan.kind} join (unique build={plan.unique_build}, residual "
-            f"filter={plan.filter is not None}) on the torch path")
     build = execute(plan.build, ctx)
     probe = execute(plan.probe, ctx)
+    # the memory tiers (partition-at-a-time joins) are not ported: every
+    # join runs in memory
+    return _join_core(plan, probe, build, ctx)
+
+
+def _join_core(plan: PhysHashJoin, probe: Chunk, build: Chunk,
+               ctx: ExecContext) -> Chunk:
     build_count = _sync_int(ctx, build.mask.sum())
+    capacity = HT.capacity_for(max(build_count, 1))
+    if plan.kind == "mark":
+        # NULL build keys never equal anything: they stay out of the table
+        # and only set the mark's has-null flag
+        nn, has_null = mark_build_nn(plan, build)
+        table = HT.build(_key_arrays(build, plan.build_keys), nn, capacity)
+        return _join_mark(plan, probe, table, has_null)
     table = HT.build(_key_arrays(build, plan.build_keys), build.mask,
-                     HT.capacity_for(max(build_count, 1)))
+                     capacity)
     probe = _dynamic_filter(plan, probe, build, ctx)
+    if plan.kind == "full":
+        return _join_full(plan, probe, build, table, ctx)
+    if plan.unique_build and plan.filter is None \
+            and plan.kind in ("inner", "left", "semi", "anti"):
+        return _join_unique(plan, probe, build, table, ctx)
+    return _join_expand(plan, probe, build, table, ctx)
+
+
+def _join_unique(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
+                 ctx: ExecContext) -> Chunk:
+    """Unique build side (PK of a FK join): one match at most per probe
+    row, so the output has the probe's shape."""
     match = HT.probe_unique(table, _key_arrays(probe, plan.probe_keys),
                             probe.mask)
     found = match >= 0
@@ -355,6 +399,171 @@ def _exec_join(plan: PhysHashJoin, ctx: ExecContext) -> Chunk:
         out = Chunk(cols, probe.mask & found if plan.kind == "inner"
                     else probe.mask)
     return _maybe_compact(out, ctx)
+
+
+def _not_null(chunk: Chunk, exprs, mask: torch.Tensor) -> torch.Tensor:
+    """``mask``, less the rows where any key expression is NULL."""
+    nn = mask
+    for e in exprs:
+        c = eval_expr(e, chunk)
+        if c.validity is not None:
+            nn = nn & c.validity
+    return nn
+
+
+def mark_build_nn(plan: PhysHashJoin, build: Chunk):
+    """(non-NULL build mask, has-null flag) of a mark join's build side."""
+    nn = _not_null(build, plan.build_keys, build.mask)
+    return nn, (build.mask & ~nn).any()
+
+
+def _join_mark(plan: PhysHashJoin, probe: Chunk, table,
+               has_null) -> Chunk:
+    """MARK semi-join: every probe row stays; the existence bit becomes a
+    boolean column (read by OR-composed predicates) with SQL three-valued
+    IN: NULL when the probe key is NULL, or when there is no match and the
+    build side holds a NULL key."""
+    slot, _ = HT.probe_counts(table, _key_arrays(probe, plan.probe_keys),
+                              probe.mask)
+    probe_valid = _not_null(probe, plan.probe_keys,
+                            torch.ones_like(probe.mask))
+    found = (slot >= 0) & probe_valid
+    mark_valid = found | (probe_valid & ~has_null)
+    cols = dict(probe.cols)
+    cols[plan.mark_name] = DCol(T.BOOLEAN, PLAIN, found, validity=mark_valid)
+    return Chunk(cols, probe.mask)
+
+
+def _join_expand(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
+                 ctx: ExecContext) -> Chunk:
+    """Non-unique build side, or a residual filter: count the matches of
+    each probe row, read the pair total on the host, then materialise the
+    pairs."""
+    slot, cnt = HT.probe_counts(table, _key_arrays(probe, plan.probe_keys),
+                                probe.mask)
+    if plan.kind in ("semi", "anti") and plan.filter is None:
+        # not null-aware: NOT IN goes through the mark join
+        found = slot >= 0
+        mask = probe.mask & (found if plan.kind == "semi" else ~found)
+        return _maybe_compact(Chunk(dict(probe.cols), mask), ctx)
+    left_like = plan.kind in ("left", "full", "semi", "anti")
+    eff = torch.where(probe.mask & (cnt == 0), 1, cnt) if left_like else cnt
+    total = _sync_int(ctx, torch.where(probe.mask, eff, 0).to(
+        torch.int64).sum())
+    out_size = max(HT.next_pow2(max(total, 1)), 64)
+    return _maybe_compact(
+        _join_expand_pairs(plan, probe, build, table, slot, cnt, out_size),
+        ctx)
+
+
+def _join_expand_pairs(plan: PhysHashJoin, probe: Chunk, build: Chunk,
+                       table, slot, cnt, out_size: int) -> Chunk:
+    """The pairs of an expanding join in an [out_size] chunk (not
+    compacted), the residual filter applied: inner keeps the matched pairs
+    that pass; semi/anti reduce them to a flag per probe row; left/full
+    keep the unmatched probe rows and null-extend a probe row whose
+    matches all fail the filter (its first pair, payload made NULL)."""
+    left_like = plan.kind in ("left", "full", "semi", "anti")
+    probe_row, build_row, valid, matched = HT.expand_matches(
+        table, slot, torch.where(probe.mask, cnt, 0), out_size,
+        left=left_like, probe_mask=probe.mask)
+    cols = {n: c.take(probe_row, valid=valid) for n, c in probe.cols.items()}
+    for out_name, bcol in plan.build_payload:
+        cols[out_name] = build.cols[bcol].take(build_row, valid=matched)
+    pairs = Chunk(cols, valid)
+    if plan.filter is not None:
+        keep_pair = eval_predicate(plan.filter, pairs) & matched
+    else:
+        keep_pair = valid & matched
+    if plan.kind in ("semi", "anti", "left", "full"):
+        n_probe = probe.n_rows
+        hit = torch.zeros((n_probe + 1,), dtype=torch.bool,
+                          device=valid.device)
+        hit[torch.where(keep_pair, probe_row, n_probe)] = True
+        hit = hit[:n_probe]
+    if plan.kind in ("semi", "anti"):
+        mask = probe.mask & (hit if plan.kind == "semi" else ~hit)
+        return Chunk(dict(probe.cols), mask)
+    if plan.kind not in ("left", "full"):
+        return Chunk(pairs.cols, keep_pair)
+    first_pair = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                       device=valid.device),
+                            probe_row[1:] != probe_row[:-1]])
+    null_extend = (valid & matched & first_pair
+                   & ~hit[probe_row.clamp(max=max(n_probe - 1, 0))])
+    mask = keep_pair | (valid & ~matched) | null_extend
+    if plan.filter is None:
+        return Chunk(pairs.cols, mask)
+    cols = dict(pairs.cols)
+    for name in {o for o, _ in plan.build_payload}:
+        c = cols[name]
+        cols[name] = DCol(c.dtype, c.kind, c.values, c.lengths,
+                          c.valid_or_true() & ~null_extend, c.dictionary)
+    return Chunk(cols, mask)
+
+
+def _full_join_tail(plan: PhysHashJoin, probe: Chunk, build: Chunk,
+                    ctx: ExecContext) -> Chunk:
+    """The build rows a FULL join did not match, probe columns NULL: a
+    reverse probe of the build keys into a table over the non-NULL probe
+    keys."""
+    pnn = _not_null(probe, plan.probe_keys, probe.mask)
+    pcap = HT.capacity_for(max(_sync_int(ctx, probe.mask.sum()), 1))
+    ptable = HT.build(_key_arrays(probe, plan.probe_keys), pnn, pcap)
+    slot, _ = HT.probe_counts(ptable, _key_arrays(build, plan.build_keys),
+                              build.mask)
+    bnn = _not_null(build, plan.build_keys, build.mask)
+    unmatched = build.mask & ~((slot >= 0) & bnn)
+    nb = build.n_rows
+    dev = build.mask.device
+    zeros = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    never = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    cols = {n: c.take(zeros, valid=never) for n, c in probe.cols.items()}
+    for out_name, bcol in plan.build_payload:
+        cols[out_name] = build.cols[bcol]
+    return Chunk(cols, unmatched)
+
+
+def _join_full(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
+               ctx: ExecContext) -> Chunk:
+    """FULL OUTER join: the probe-outer expansion, then the unmatched
+    build rows with NULL probe columns."""
+    if plan.filter is not None:
+        raise NotImplementedError("FULL JOIN with residual filter")
+    pairs = _join_expand(plan, probe, build, table, ctx)
+    return concat_chunks([pairs, _full_join_tail(plan, probe, build, ctx)])
+
+
+def _concat_validity(cols: List[DCol]):
+    if all(c.validity is None for c in cols):
+        return None
+    return torch.cat([c.valid_or_true() for c in cols])
+
+
+def concat_chunks(chunks: List[Chunk]) -> Chunk:
+    """Vertical concat of chunks with the same columns and layouts, as a
+    FULL join's two parts have them: PLAIN (long decimals too), DICT over
+    one dictionary, and BYTES, padded to the widest."""
+    out: Dict[str, DCol] = {}
+    for name in chunks[0].cols:
+        cols = [ch.cols[name] for ch in chunks]
+        kinds = {c.kind for c in cols}
+        if len(kinds) > 1 or (kinds == {DICT} and any(
+                c.dictionary is not cols[0].dictionary for c in cols)):
+            raise NotImplementedError(
+                f"concat of {sorted(kinds)} columns over different "
+                "layouts or dictionaries")
+        if kinds == {BYTES}:
+            w = max(c.values.shape[1] for c in cols)
+            out[name] = DCol(cols[0].dtype, BYTES, torch.cat([
+                torch.nn.functional.pad(c.values, (0, w - c.values.shape[1]))
+                for c in cols]), torch.cat([c.lengths for c in cols]),
+                _concat_validity(cols))
+            continue
+        out[name] = DCol(cols[0].dtype, cols[0].kind,
+                         torch.cat([c.values for c in cols]), None,
+                         _concat_validity(cols), cols[0].dictionary)
+    return Chunk(out, torch.cat([ch.mask for ch in chunks]))
 
 
 def _dynamic_filter(plan: PhysHashJoin, probe: Chunk, build: Chunk,

@@ -40,6 +40,30 @@ def seg_count(group, mask, capacity):
     return out[:capacity]
 
 
+def _seg_extreme(values, group, mask, capacity, reduce: str):
+    """Per-group minimum (``amin``) or maximum (``amax``); a group with no
+    row keeps the dtype's own extreme.  A colliding ``scatter_reduce_``,
+    like ``seg_sum``'s ``index_add_``."""
+    if values.is_floating_point():
+        init = float("inf") if reduce == "amin" else float("-inf")
+    else:
+        info = torch.iinfo(values.dtype)
+        init = info.max if reduce == "amin" else info.min
+    out = torch.full((capacity + 1,), init, dtype=values.dtype,
+                     device=values.device)
+    out.scatter_reduce_(0, _scatter_idx(group, mask, capacity), values,
+                        reduce=reduce)
+    return out[:capacity]
+
+
+def seg_min(values, group, mask, capacity):
+    return _seg_extreme(values, group, mask, capacity, "amin")
+
+
+def seg_max(values, group, mask, capacity):
+    return _seg_extreme(values, group, mask, capacity, "amax")
+
+
 # --- global (no group-by) variants: one-slot reductions ---
 
 def g_sum(values, mask, dtype=None):

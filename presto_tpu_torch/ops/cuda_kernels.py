@@ -46,6 +46,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # launches of each kernel since the last reset_launches() — the proof that
 # a run went through the kernels and not their plain versions
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# while set (set_probe_recorder), called with (sorted_keys, probe_keys,
+# n_valid) at every sorted_probe launch: how a caller captures the inputs
+# the main path gives the kernel, whoever imported the wrapper and how
+_probe_recorder = None
 # nvcc's output (with -Xptxas -v: registers, shared memory, spills) of each
 # source this process compiled
 BUILD_LOG: Dict[str, str] = {}
@@ -63,6 +67,13 @@ _tls = threading.local()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def set_probe_recorder(fn) -> None:
+    """Call ``fn(sorted_keys, probe_keys, n_valid)`` at every launch of
+    ``sorted_probe`` from now on; ``None`` stops it."""
+    global _probe_recorder
+    _probe_recorder = fn
 
 
 def _nvcc() -> str:
@@ -306,4 +317,6 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
                    *_plan(p, index), _stream(index))
         _raise_on(_launcher("sorted_probe")(args), "sorted_probe")
         LAUNCHES["sorted_probe"] += 1
+        if _probe_recorder is not None:
+            _probe_recorder(sorted_keys, probe_keys, n_valid)
     return out

@@ -14,6 +14,8 @@ Torch port of ``presto_tpu/ops/hashtable.py`` (the reference's
   exact-equality check.  A single-int64-key table goes to the
   ``sorted_probe`` kernel; composite keys keep the plain lexicographic
   search or the merge.
+- ``expand_matches``: the (probe row, build row) pairs of a non-unique
+  build, probe-row major, from the match counts and the CSR layout.
 
 "Slots" are dense run ids in [0, capacity): ``owner[g]`` is the lowest row
 id of group g (EMPTY beyond G), ``slot_of_row[i]`` its group id (-1 for a
@@ -254,6 +256,49 @@ def probe_counts(table: HashTable, probe_keys: Sequence[torch.Tensor],
     cnt = torch.where(slot >= 0,
                       table.counts[slot.clamp_min(0).to(torch.int64)], 0)
     return slot, cnt.to(torch.int32)
+
+
+def expand_matches(table: HashTable, slot: torch.Tensor, cnt: torch.Tensor,
+                   out_size: int, left: bool = False,
+                   probe_mask: torch.Tensor = None):
+    """Second pass of an expanding join: the (probe_row, build_row) pairs
+    in a padded [out_size] buffer, probe-row major, the build rows of one
+    key in CSR (build row) order.
+
+    ``out_size`` must be >= the pair count (the caller reads the count on
+    the host between the passes).  With ``left=True`` an unmatched,
+    masked-in probe row emits one filler pair with ``matched=False``.
+    Returns (probe_row, build_row, valid, matched), all [out_size]."""
+    dev = slot.device
+    if cnt.shape[0] == 0:
+        z = torch.zeros((out_size,), dtype=torch.int64, device=dev)
+        f = torch.zeros((out_size,), dtype=torch.bool, device=dev)
+        return z, z, f, f
+    if left:
+        cnt_eff = torch.where(probe_mask & (cnt == 0), 1, cnt)
+    else:
+        cnt_eff = cnt
+    cnt_eff = cnt_eff.to(torch.int64)
+    ends = torch.cumsum(cnt_eff, 0)
+    starts = ends - cnt_eff
+    total = ends[-1]
+    j = torch.arange(out_size, dtype=torch.int64, device=dev)
+    # probe_row[j] = #{i : ends[i] <= j}: a histogram of `ends`, prefix-summed
+    hist = torch.zeros((out_size + 1,), dtype=torch.int64, device=dev)
+    hist.index_add_(0, ends.clamp(max=out_size),
+                    torch.ones_like(ends))
+    probe_row = torch.cumsum(hist, 0)[:out_size]
+    probe_cl = probe_row.clamp(max=cnt.shape[0] - 1)
+    k = j - starts[probe_cl]
+    s = slot[probe_cl].to(torch.int64).clamp_min(0)
+    n_csr = table.rows_csr.shape[0]
+    build_row = table.rows_csr[
+        (table.offsets[s].to(torch.int64) + k).clamp(0, max(n_csr - 1, 0))] \
+        if n_csr else torch.zeros_like(j)
+    valid = j < total
+    matched = valid & (cnt[probe_cl] > 0)
+    return (torch.where(valid, probe_cl, 0),
+            torch.where(matched, build_row, 0), valid, matched)
 
 
 def next_pow2(n: int) -> int:

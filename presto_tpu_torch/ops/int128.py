@@ -211,6 +211,13 @@ def rescale(hi, lo, from_scale: int, to_scale: int) -> I64Pair:
                              *from_i64(torch.full_like(hi, POW10[k])))
 
 
+def sort_keys(hi, lo):
+    """Two int64 keys whose (signed, signed) lexicographic order is signed
+    int128 order: ``hi`` as it is, ``lo`` with its sign bit flipped
+    (unsigned order becomes signed order)."""
+    return [hi, lo ^ SIGN]
+
+
 # ------------------------------------------------- segment / global sums
 
 def seg_sum128_from_i64(values, group, mask, capacity):
@@ -254,6 +261,27 @@ def g_sum128_from_i128(vals2d, mask):
     r = add(*r, *shl(*from_i64(S[1]), 32))
     hi_part = S[2] + (S[3] << 32)
     return add(*r, hi_part, torch.zeros_like(hi_part))
+
+
+# ------------------------------------------------- segment extremes
+#
+# int128 order is lexicographic (hi signed, lo unsigned): reduce the hi
+# word first, then the lo word among the rows tied at the extreme hi.
+
+def seg_min128(vals2d, group, mask, capacity):
+    from . import agg as A
+    hi, lo = unpack(vals2d)
+    h = A.seg_min(hi, group, mask, capacity)
+    tied = mask & (hi == h[group.to(torch.int64).clamp_min(0)])
+    return h, A.seg_min(lo ^ SIGN, group, tied, capacity) ^ SIGN
+
+
+def seg_max128(vals2d, group, mask, capacity):
+    from . import agg as A
+    hi, lo = unpack(vals2d)
+    h = A.seg_max(hi, group, mask, capacity)
+    tied = mask & (hi == h[group.to(torch.int64).clamp_min(0)])
+    return h, A.seg_max(lo ^ SIGN, group, tied, capacity) ^ SIGN
 
 
 # ------------------------------------------------- host conversion

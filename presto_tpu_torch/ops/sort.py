@@ -2,13 +2,14 @@
 
 Torch port of ``argsort_multi`` in ``presto_tpu/ops/sort.py`` (the
 reference's ``operator/PagesIndex.java:389 sort()``): keys are integers
-(descending via bitwise complement), and a multi-key order is a chain of
-stable sorts from the least to the most significant key.
+(descending via bitwise complement), strings are big-endian 8-byte packs
+(``bytes_sort_keys``), and a multi-key order is a chain of stable sorts
+from the least to the most significant key.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -16,6 +17,30 @@ I64_MAX = 2**63 - 1
 I32_MAX = 2**31 - 1
 
 _NARROW = (torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool)
+
+
+def bytes_sort_keys(values: torch.Tensor,
+                    lengths: torch.Tensor) -> List[torch.Tensor]:
+    """A [N, W] ASCII byte matrix → ceil(W/8) big-endian int64 packs.
+
+    Bytes at or past ``lengths`` are zeroed, so a shorter string sorts
+    first, and packs compare in lexicographic order for ASCII (a byte
+    >= 0x80 would turn a pack negative, as in the reference)."""
+    n, w = values.shape
+    w8 = (w + 7) // 8 * 8
+    dev = values.device
+    padded = torch.zeros((n, w8), dtype=torch.int64, device=dev)
+    padded[:, :w] = values.to(torch.int64)
+    keep = torch.arange(w8, device=dev)[None, :] < lengths.to(
+        torch.int64)[:, None]
+    padded = torch.where(keep, padded, 0)
+    packs = []
+    for c in range(w8 // 8):
+        word = torch.zeros((n,), dtype=torch.int64, device=dev)
+        for b in range(8):
+            word = (word << 8) | padded[:, c * 8 + b]
+        packs.append(word)
+    return packs
 
 
 def argsort_multi(keys: Sequence[Tuple[torch.Tensor, bool]],

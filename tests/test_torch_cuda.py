@@ -117,3 +117,91 @@ def test_lookup_on_card_launches_sorted_probe(card):
     got = HT.lookup(table, [probe.to(card)], mask.to(card))
     assert CK.LAUNCHES["sorted_probe"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_probe_recorder_sees_the_main_path_launch(card):
+    """A lookup on the card hands the recorder the very tensors it gave
+    the kernel, once per launch."""
+    rng = np.random.default_rng(11)
+    build = torch.from_numpy(rng.choice(10**6, 4_000, replace=False))
+    table = HT.build([build.to(card)],
+                     torch.ones(4_000, dtype=torch.bool, device=card),
+                     HT.capacity_for(4_000))
+    probe = torch.from_numpy(rng.integers(0, 10**6, 9_000)).to(card)
+    seen = []
+    CK.set_probe_recorder(lambda k, p, nv: seen.append((k, p, int(nv))))
+    try:
+        HT.lookup(table, [probe], torch.ones(9_000, dtype=torch.bool,
+                                             device=card))
+    finally:
+        CK.set_probe_recorder(None)
+    assert len(seen) == 1
+    keys, probes, nv = seen[0]
+    assert keys.is_cuda and probes.shape == (9_000,) and nv == 4_000
+    torch.testing.assert_close(probes, probe, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 257, 300_000])
+@pytest.mark.parametrize("valid", [1.0, 0.63])
+def test_sorted_probe_repeated_keys_equal_plain(card, p, valid):
+    """A non-unique build as ``HT.build`` lays it out: every key repeats
+    1-7 times (as ``l_orderkey`` does in lineitem), runs crossing the
+    sample positions, the masked-out rows sorted to the tail as +MAX."""
+    rng = np.random.default_rng(p + int(valid * 100))
+    keys = np.repeat(np.arange(1, 60_001, dtype=np.int64) * 4,
+                     rng.integers(1, 8, 60_000))
+    n = keys.size
+    nv = int(n * valid)
+    keys = np.concatenate([
+        keys[np.sort(rng.choice(n, nv, replace=False))],
+        np.full(n - nv, 2**63 - 1, dtype=np.int64)])
+    probe = rng.integers(-3, 240_010, p).astype(np.int64)
+    keys_t, probe_t = torch.from_numpy(keys), torch.from_numpy(probe)
+    before = CK.LAUNCHES["sorted_probe"]
+    got = CK.sorted_probe(keys_t.to(card), probe_t.to(card),
+                          torch.tensor(nv, device=card))
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["sorted_probe"] == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), CK.sorted_probe_plain(keys_t, probe_t, nv).numpy())
+
+
+@pytest.mark.cuda
+def test_probe_counts_repeated_build_on_card(card):
+    """Match counts into a non-unique table on the card (through the
+    kernel) equal the same probe on the CPU."""
+    rng = np.random.default_rng(11)
+    build = torch.from_numpy(np.repeat(
+        rng.choice(10**6, 40_000, replace=False), rng.integers(1, 8, 40_000)))
+    bmask = torch.from_numpy(rng.random(build.shape[0]) < 0.7)
+    probe = torch.from_numpy(rng.integers(0, 10**6, 200_000))
+    pmask = torch.from_numpy(rng.random(200_000) < 0.9)
+    cap = HT.capacity_for(build.shape[0])
+    want = HT.probe_counts(HT.build([build], bmask, cap), [probe], pmask)
+    before = CK.LAUNCHES["sorted_probe"]
+    got = HT.probe_counts(HT.build([build.to(card)], bmask.to(card), cap),
+                          [probe.to(card)], pmask.to(card))
+    assert CK.LAUNCHES["sorted_probe"] == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 4, 21])
+def test_join_query_on_card_equals_cpu(card, q):
+    """A join query of TPC-H at SF0.01 on the card equals the port on the
+    CPU, and its joins went through the kernel."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpch.queries import QUERIES
+
+    def cols(t):
+        return {name: col.to_pylist() for name, col in t.columns.items()}
+
+    want = cols(LocalRunner(scale_factor=0.01, device="cpu")
+                .run_sql(QUERIES[q]))
+    before = CK.LAUNCHES["sorted_probe"]
+    got = cols(LocalRunner(scale_factor=0.01).run_sql(QUERIES[q]))
+    assert CK.LAUNCHES["sorted_probe"] > before
+    assert got == want

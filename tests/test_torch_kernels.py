@@ -244,6 +244,36 @@ def test_sorted_probe_n_valid_forms_on_the_host():
             CK.sorted_probe(t(keys), t(probe), nv).numpy(), want)
 
 
+def test_probe_recorder_sees_launches_only():
+    """The recorder is called where the wrapper launches its kernel, and
+    nowhere else: a probe on the CPU (the plain version) records nothing."""
+    seen = []
+    CK.set_probe_recorder(lambda *a: seen.append(a))
+    try:
+        keys, probe = _probe_case(4, 300, 300)
+        CK.sorted_probe(t(keys), t(probe), 300)
+    finally:
+        CK.set_probe_recorder(None)
+    assert seen == [] and CK._probe_recorder is None
+
+
+def test_chip_smoke_probe_bound_counts_a_sector_per_probe():
+    """``chip_smoke.py``'s byte bound of ``sorted_probe``: probes and
+    positions once, and of the keys one 32-byte sector per probe at most,
+    never more than the table."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as C
+    per_ms = C.HBM_BYTES_PER_S / 1e3
+    assert C.probe_bound_ms(142_989, 6_002_590) * per_ms == \
+        pytest.approx(12 * 142_989 + 32 * 142_989 + 8)
+    assert C.probe_bound_ms(6_002_590, 1_500_000) * per_ms == \
+        pytest.approx(12 * 6_002_590 + 8 * 1_500_000 + 8)
+    assert C.probe_bound_ms(0, 10) * per_ms == pytest.approx(8)
+
+
 def test_sorted_probe_rejects_bad_inputs():
     keys = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):

@@ -161,7 +161,8 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_neither_jax_nor_reference():
     """Running Q6 through the port loads no jax and no presto_tpu module,
-    and no port source (nor its chip scripts) imports them."""
+    and no port source (nor its chip scripts and their numpy oracle)
+    imports them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT,
                           env=env, capture_output=True, text=True,
@@ -171,7 +172,8 @@ def test_port_imports_neither_jax_nor_reference():
     sources = [os.path.join(ROOT, "chip_smoke.py"),
                os.path.join(ROOT, "tools", "torch_query_profile.py"),
                os.path.join(ROOT, "tools", "sorted_probe_sweep.py"),
-               os.path.join(ROOT, "tools", "q14_probe_ab.py")]
+               os.path.join(ROOT, "tools", "q14_probe_ab.py"),
+               os.path.join(ROOT, "tools", "np_tpch_oracle.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "presto_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     offenders = []

@@ -1,0 +1,358 @@
+"""TPC-H Q1, Q2, Q3, Q4, Q5, Q6, Q10, Q14, Q17, Q18, Q21 and a BIGINT sum
+in numpy, over the host tables of ``presto_tpu_torch``'s data source
+(``DataSource.read_host``).
+
+An oracle independent of the engine: no pandas, no torch, no engine code,
+only the generated host columns and numpy.  Decimals stay unscaled
+integers with exact int64 sums; a division rounds half away from zero, as
+the engine's decimals do.  Each function returns the result as the
+engine's ``{column: col.to_pylist()}``, rows in the query's order.
+
+    import np_tpch_oracle as NO          # with tools/ on sys.path
+    want = NO.oracle(runner.datasource, ("q3", "q18"))
+
+``chip_smoke.py`` holds the port's results on the card to it at SF1;
+``tests/test_torch_joins.py`` holds it to ``tests/tpch_oracle.py`` at
+SF0.01.
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+
+import numpy as np
+
+
+def days(iso: str) -> int:
+    return (dt.date.fromisoformat(iso) - dt.date(1970, 1, 1)).days
+
+
+def div_half_up(num: int, den: int) -> int:
+    sign = -1 if (num < 0) != (den < 0) else 1
+    q, r = divmod(abs(num), abs(den))
+    return sign * (q + (2 * r >= abs(den)))
+
+
+class Tables:
+    """Host columns read once per (table, column) from a data source."""
+
+    def __init__(self, ds):
+        self.ds = ds
+        self.cols = {}
+
+    def col(self, table: str, name: str):
+        if (table, name) not in self.cols:
+            self.cols[(table, name)] = self.ds.read_host(table, (name,))[name]
+        return self.cols[(table, name)]
+
+    def v(self, table: str, name: str) -> np.ndarray:
+        """Values (codes of a dictionary column)."""
+        return np.asarray(self.col(table, name).values)
+
+    def s(self, table: str, name: str) -> np.ndarray:
+        """Python strings of a string column (object array)."""
+        return np.array(self.col(table, name).to_pylist(), dtype=object)
+
+    def where(self, table: str, name: str, pred) -> np.ndarray:
+        """bool per row: ``pred(string)`` of a dictionary column, decided
+        once per dictionary entry."""
+        c = self.col(table, name)
+        hit = np.array([bool(pred(str(x))) for x in c.dictionary])
+        return hit[np.asarray(c.values)]
+
+
+def lookup(keys: np.ndarray, probe: np.ndarray):
+    """(row of each probe in ``keys``, found) for unique ``keys``."""
+    order = np.argsort(keys, kind="stable")
+    pos = np.searchsorted(keys[order], probe)
+    pos = np.minimum(pos, max(keys.shape[0] - 1, 0))
+    row = order[pos]
+    return row, keys[row] == probe
+
+
+def group_sum(keys: np.ndarray, vals: np.ndarray):
+    """(distinct keys ascending, exact int64 sum of ``vals`` per key)."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    if k.shape[0] == 0:
+        return k, np.zeros(0, np.int64)
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    return k[starts], np.add.reduceat(vals[order].astype(np.int64), starts)
+
+
+def _rows(cols: dict, order) -> dict:
+    return {k: [v[i] for i in order] for k, v in cols.items()}
+
+
+def _py(a) -> list:
+    return [x.item() if hasattr(x, "item") else x for x in a]
+
+
+def q1(t: Tables) -> dict:
+    ship = t.v("lineitem", "l_shipdate")
+    m = ship <= days("1998-12-01") - 90
+    rf, ls = t.col("lineitem", "l_returnflag"), t.col("lineitem",
+                                                      "l_linestatus")
+    rf_d, ls_d = rf.dictionary, ls.dictionary
+    gid = np.asarray(rf.values)[m].astype(np.int64) * len(ls_d) \
+        + np.asarray(ls.values)[m]
+    ep, disc = t.v("lineitem", "l_extendedprice")[m], \
+        t.v("lineitem", "l_discount")[m]
+    disc_price = ep * (100 - disc)
+    fields = {"sum_qty": t.v("lineitem", "l_quantity")[m],
+              "sum_base_price": ep, "sum_disc_price": disc_price,
+              "sum_charge": disc_price * (100 + t.v("lineitem", "l_tax")[m]),
+              "disc": disc}
+    groups = sorted(np.unique(gid).tolist(),
+                    key=lambda g: (str(rf_d[g // len(ls_d)]),
+                                   str(ls_d[g % len(ls_d)])))
+    out = {k: [] for k in ("l_returnflag", "l_linestatus", "sum_qty",
+                           "sum_base_price", "sum_disc_price", "sum_charge",
+                           "avg_qty", "avg_price", "avg_disc", "count_order")}
+    for g in groups:
+        sel = gid == g
+        cnt = int(sel.sum())
+        s = {k: int(v[sel].sum()) for k, v in fields.items()}
+        out["l_returnflag"].append(str(rf_d[g // len(ls_d)]))
+        out["l_linestatus"].append(str(ls_d[g % len(ls_d)]))
+        for k in ("sum_qty", "sum_base_price", "sum_disc_price",
+                  "sum_charge"):
+            out[k].append(s[k])
+        out["avg_qty"].append(div_half_up(s["sum_qty"], cnt))
+        out["avg_price"].append(div_half_up(s["sum_base_price"], cnt))
+        out["avg_disc"].append(div_half_up(s["disc"], cnt))
+        out["count_order"].append(cnt)
+    return out
+
+
+def q6(t: Tables) -> dict:
+    ship, disc = t.v("lineitem", "l_shipdate"), t.v("lineitem", "l_discount")
+    m = ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
+         & (disc >= 5) & (disc <= 7) & (t.v("lineitem", "l_quantity") < 2400))
+    ep = t.v("lineitem", "l_extendedprice")
+    return {"revenue": [int((ep[m] * disc[m]).sum())]}
+
+
+def q14(t: Tables) -> dict:
+    ship = t.v("lineitem", "l_shipdate")
+    m = (ship >= days("1995-09-01")) & (ship < days("1995-10-01"))
+    row, _ = lookup(t.v("part", "p_partkey"), t.v("lineitem", "l_partkey")[m])
+    promo = t.where("part", "p_type", lambda s: s.startswith("PROMO"))[row]
+    rev = t.v("lineitem", "l_extendedprice")[m] \
+        * (100 - t.v("lineitem", "l_discount")[m])
+    # 10^8 times an int64 sum: in python ints
+    return {"promo_revenue": [div_half_up(
+        10000 * int(rev[promo].sum()) * 10**4, int(rev.sum()))]}
+
+
+def bigint_sum(t: Tables) -> dict:
+    m = t.v("lineitem", "l_shipdate") <= days("1998-09-02")
+    return {"s": [int(t.v("lineitem", "l_orderkey")[m].sum())],
+            "c": [int(m.sum())]}
+
+
+def q2(t: Tables) -> dict:
+    eur_regions = np.flatnonzero(t.where("region", "r_name",
+                                         lambda s: s == "EUROPE"))
+    rkey = t.v("region", "r_regionkey")[eur_regions]
+    nkey = t.v("nation", "n_nationkey")
+    eur_nation = np.isin(t.v("nation", "n_regionkey"), rkey)
+    skey = t.v("supplier", "s_suppkey")
+    srow_nation, _ = lookup(nkey, t.v("supplier", "s_nationkey"))
+    s_eur = eur_nation[srow_nation]
+    ps_part, ps_supp = t.v("partsupp", "ps_partkey"), \
+        t.v("partsupp", "ps_suppkey")
+    cost = t.v("partsupp", "ps_supplycost")
+    srow, sfound = lookup(skey, ps_supp)
+    ps_eur = sfound & s_eur[srow]
+    # min(ps_supplycost) over the European suppliers of each part
+    mkeys = ps_part[ps_eur]
+    order = np.lexsort((cost[ps_eur], mkeys))
+    first = np.r_[True, mkeys[order][1:] != mkeys[order][:-1]]
+    min_part, min_cost = mkeys[order][first], cost[ps_eur][order][first]
+    pkey = t.v("part", "p_partkey")
+    p_ok = (t.v("part", "p_size") == 15) & t.where(
+        "part", "p_type", lambda s: s.endswith("BRASS"))
+    prow, _ = lookup(pkey, ps_part)
+    mrow, mfound = lookup(min_part, ps_part)
+    keep = np.flatnonzero(ps_eur & p_ok[prow] & mfound
+                          & (cost == min_cost[mrow]))
+    s_r, p_r = srow[keep], prow[keep]
+    n_r = srow_nation[s_r]
+    cols = {"s_acctbal": _py(t.v("supplier", "s_acctbal")[s_r]),
+            "s_name": list(t.s("supplier", "s_name")[s_r]),
+            "n_name": list(t.s("nation", "n_name")[n_r]),
+            "p_partkey": _py(pkey[p_r]),
+            "p_mfgr": list(t.s("part", "p_mfgr")[p_r]),
+            "s_address": list(t.s("supplier", "s_address")[s_r]),
+            "s_phone": list(t.s("supplier", "s_phone")[s_r]),
+            "s_comment": list(t.s("supplier", "s_comment")[s_r])}
+    order = sorted(range(len(keep)), key=lambda i: (
+        -cols["s_acctbal"][i], cols["n_name"][i], cols["s_name"][i],
+        cols["p_partkey"][i]))[:100]
+    return _rows(cols, order)
+
+
+def _revenue(t: Tables, rows: np.ndarray) -> np.ndarray:
+    """l_extendedprice * (1 - l_discount) of lineitem rows, at scale 4."""
+    return t.v("lineitem", "l_extendedprice")[rows] * \
+        (100 - t.v("lineitem", "l_discount")[rows])
+
+
+def q3(t: Tables) -> dict:
+    cutoff = days("1995-03-15")
+    building = t.where("customer", "c_mktsegment", lambda s: s == "BUILDING")
+    crow, _ = lookup(t.v("customer", "c_custkey"), t.v("orders", "o_custkey"))
+    o_ok = (t.v("orders", "o_orderdate") < cutoff) & building[crow]
+    okey = t.v("orders", "o_orderkey")
+    orow, ofound = lookup(okey, t.v("lineitem", "l_orderkey"))
+    li = np.flatnonzero((t.v("lineitem", "l_shipdate") > cutoff) & ofound
+                        & o_ok[orow])
+    keys, rev = group_sum(t.v("lineitem", "l_orderkey")[li], _revenue(t, li))
+    grow, _ = lookup(okey, keys)
+    date = t.v("orders", "o_orderdate")[grow]
+    order = np.lexsort((date, -rev))[:10]
+    return {"l_orderkey": _py(keys[order]), "revenue": _py(rev[order]),
+            "o_orderdate": _py(date[order]),
+            "o_shippriority": _py(t.v("orders", "o_shippriority")[grow][order])}
+
+
+def q4(t: Tables) -> dict:
+    lo, hi = days("1993-07-01"), days("1993-10-01")
+    late = t.v("lineitem", "l_commitdate") < t.v("lineitem", "l_receiptdate")
+    late_orders = np.unique(t.v("lineitem", "l_orderkey")[late])
+    odate = t.v("orders", "o_orderdate")
+    o_ok = (odate >= lo) & (odate < hi) & np.isin(t.v("orders", "o_orderkey"),
+                                                  late_orders)
+    prio = t.col("orders", "o_orderpriority")
+    codes, counts = np.unique(np.asarray(prio.values)[o_ok],
+                              return_counts=True)
+    names = [str(prio.dictionary[c]) for c in codes]
+    order = sorted(range(len(names)), key=lambda i: names[i])
+    return {"o_orderpriority": [names[i] for i in order],
+            "order_count": [int(counts[i]) for i in order]}
+
+
+def q5(t: Tables) -> dict:
+    lo, hi = days("1994-01-01"), days("1995-01-01")
+    asia = t.where("region", "r_name", lambda s: s == "ASIA")
+    rrow, _ = lookup(t.v("region", "r_regionkey"), t.v("nation", "n_regionkey"))
+    n_asia = asia[rrow]
+    nkey = t.v("nation", "n_nationkey")
+    s_nation = t.v("supplier", "s_nationkey")
+    c_nation = t.v("customer", "c_nationkey")
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), t.v("lineitem", "l_suppkey"))
+    orow, ofound = lookup(t.v("orders", "o_orderkey"),
+                          t.v("lineitem", "l_orderkey"))
+    odate = t.v("orders", "o_orderdate")
+    crow, _ = lookup(t.v("customer", "c_custkey"), t.v("orders", "o_custkey"))
+    ln = s_nation[srow]
+    lnrow, _ = lookup(nkey, ln)
+    li = np.flatnonzero(ofound & (odate[orow] >= lo) & (odate[orow] < hi)
+                        & (c_nation[crow[orow]] == ln) & n_asia[lnrow])
+    keys, rev = group_sum(ln[li], _revenue(t, li))
+    nrow, _ = lookup(nkey, keys)
+    names = t.s("nation", "n_name")[nrow]
+    order = np.argsort(-rev, kind="stable")
+    return {"n_name": list(names[order]), "revenue": _py(rev[order])}
+
+
+def q10(t: Tables) -> dict:
+    lo, hi = days("1993-10-01"), days("1994-01-01")
+    odate = t.v("orders", "o_orderdate")
+    orow, ofound = lookup(t.v("orders", "o_orderkey"),
+                          t.v("lineitem", "l_orderkey"))
+    ret = t.where("lineitem", "l_returnflag", lambda s: s == "R")
+    li = np.flatnonzero(ret & ofound & (odate[orow] >= lo)
+                        & (odate[orow] < hi))
+    cust = t.v("orders", "o_custkey")[orow[li]]
+    keys, rev = group_sum(cust, _revenue(t, li))
+    order = np.argsort(-rev, kind="stable")[:20]
+    crow, _ = lookup(t.v("customer", "c_custkey"), keys[order])
+    nrow, _ = lookup(t.v("nation", "n_nationkey"),
+                     t.v("customer", "c_nationkey")[crow])
+    return {"c_custkey": _py(keys[order]),
+            "c_name": list(t.s("customer", "c_name")[crow]),
+            "revenue": _py(rev[order]),
+            "c_acctbal": _py(t.v("customer", "c_acctbal")[crow]),
+            "n_name": list(t.s("nation", "n_name")[nrow]),
+            "c_address": list(t.s("customer", "c_address")[crow]),
+            "c_phone": list(t.s("customer", "c_phone")[crow]),
+            "c_comment": list(t.s("customer", "c_comment")[crow])}
+
+
+def q17(t: Tables) -> dict:
+    part = t.v("lineitem", "l_partkey")
+    qty = t.v("lineitem", "l_quantity")
+    keys, qsum = group_sum(part, qty)
+    _, qcnt = group_sum(part, np.ones_like(qty))
+    avg = np.array([div_half_up(int(s), int(c)) for s, c in
+                    zip(qsum, qcnt)], dtype=np.int64)  # scale 2, HALF_UP
+    p_ok = t.where("part", "p_brand", lambda s: s == "Brand#23") & t.where(
+        "part", "p_container", lambda s: s == "MED BOX")
+    prow, pfound = lookup(t.v("part", "p_partkey"), part)
+    arow, _ = lookup(keys, part)
+    # l_quantity (scale 2) < 0.2 (scale 1) * avg (scale 2), at scale 3
+    keep = pfound & p_ok[prow] & (qty * 10 < 2 * avg[arow])
+    total = int(t.v("lineitem", "l_extendedprice")[keep].sum())
+    # sum (scale 2) / 7.0 (scale 1) at scale 2
+    return {"avg_yearly": [div_half_up(total * 10, 70)]}
+
+
+def q18(t: Tables, threshold: int = 30000) -> dict:
+    """``threshold``: sum(l_quantity) > threshold, unscaled (300.00)."""
+    lkey = t.v("lineitem", "l_orderkey")
+    keys, qsum = group_sum(lkey, t.v("lineitem", "l_quantity"))
+    big, bsum = keys[qsum > threshold], qsum[qsum > threshold]
+    orow, _ = lookup(t.v("orders", "o_orderkey"), big)
+    crow, _ = lookup(t.v("customer", "c_custkey"), t.v("orders", "o_custkey")[orow])
+    price = t.v("orders", "o_totalprice")[orow]
+    date = t.v("orders", "o_orderdate")[orow]
+    order = np.lexsort((date, -price))[:100]
+    return {"c_name": list(t.s("customer", "c_name")[crow][order]),
+            "c_custkey": _py(t.v("customer", "c_custkey")[crow][order]),
+            "o_orderkey": _py(big[order]), "o_orderdate": _py(date[order]),
+            "o_totalprice": _py(price[order]), "_col5": _py(bsum[order])}
+
+
+def _distinct_per(key: np.ndarray, other: np.ndarray):
+    """(distinct keys, number of distinct ``other`` values per key)."""
+    m = int(other.max()) + 1 if other.shape[0] else 1
+    pairs = np.unique(key * m + other)  # other >= 0, key * m < 2^63
+    return np.unique(pairs // m, return_counts=True)
+
+
+def q21(t: Tables) -> dict:
+    lkey, lsupp = t.v("lineitem", "l_orderkey"), t.v("lineitem", "l_suppkey")
+    late = t.v("lineitem", "l_receiptdate") > t.v("lineitem", "l_commitdate")
+    okeys, n_supp = _distinct_per(lkey, lsupp)
+    lkeys, n_late_supp = _distinct_per(lkey[late], lsupp[late])
+    status_f = t.where("orders", "o_orderstatus", lambda s: s == "F")
+    orow, ofound = lookup(t.v("orders", "o_orderkey"), lkey)
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), lsupp)
+    saudi = t.where("nation", "n_name", lambda s: s == "SAUDI ARABIA")
+    nrow, _ = lookup(t.v("nation", "n_nationkey"),
+                     t.v("supplier", "s_nationkey")[srow])
+    arow, _ = lookup(okeys, lkey)
+    brow, bfound = lookup(lkeys, lkey)
+    # exists l2 of another supplier: the order has > 1 supplier; not exists
+    # a late l3 of another supplier: l1's supplier is the order's only late
+    # one (l1 is late itself)
+    keep = (late & ofound & status_f[orow] & saudi[nrow]
+            & (n_supp[arow] > 1) & bfound & (n_late_supp[brow] == 1))
+    supp, cnt = np.unique(srow[keep], return_counts=True)
+    names = t.s("supplier", "s_name")[supp]
+    order = sorted(range(len(supp)), key=lambda i: (-cnt[i], names[i]))[:100]
+    return {"s_name": [names[i] for i in order],
+            "numwait": [int(cnt[i]) for i in order]}
+
+
+QUERIES = {"q1": q1, "q6": q6, "q14": q14, "bigint_sum": bigint_sum,
+           "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q10": q10, "q17": q17,
+           "q18": q18, "q21": q21}
+
+
+def oracle(ds, names=tuple(QUERIES)) -> dict:
+    """The named queries' results over ``ds``'s host tables."""
+    t = Tables(ds)
+    return {name: QUERIES[name](t) for name in names}

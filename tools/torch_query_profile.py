@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where one warm query's time goes in presto_tpu_torch, on one CUDA card.
 
-    python3 tools/torch_query_profile.py [--sf 1.0] [--runs 3]
+    python3 tools/torch_query_profile.py [--sf 1.0] [--runs 3] \
+        [--queries q1,q6,q14,bigint_sum,q2,q3,q4,q5,q10,q17,q18,q21]
 
-For TPC-H Q1, Q6, Q14 and the BIGINT sum at the given scale factor, after
-one warm-up run each, prints one JSON line per query with:
+For the named requests (TPC-H queries and the BIGINT sum; all twelve by
+default) at the given scale factor, after one warm-up run each, prints
+one JSON line per query with:
 
 - ``wall_ms``: host wall time of one warm ``run_sql`` (median of ``runs``),
   fenced with ``torch.cuda.synchronize()``;
@@ -12,7 +14,10 @@ one warm-up run each, prints one JSON line per query with:
   kernel, memset and memcpy that ``torch.profiler`` recorded during one run,
   and 1 - busy / wall;
 - ``device_ops``: that run's count of device activities;
-- ``top_device``: the five operators with the most device time;
+- ``top_device``: the five ATen operators with the most device time;
+- ``scatter_ops``: device ms and calls of the colliding scatters
+  (``index_add_`` of the segment sums and counts, ``scatter_reduce_`` of
+  the segment min/max and ``arbitrary``);
 - ``host_top``: the five functions of the port's ``ops`` package with the
   most cumulative host time under ``cProfile``, as shares of the run (a
   separate run; cProfile slows Python, so these are shares, not times).
@@ -44,6 +49,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--queries", default="q1,q6,q14,bigint_sum,q2,q3,q4,"
+                    "q5,q10,q17,q18,q21")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -57,8 +64,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     runner = LocalRunner(scale_factor=args.sf)
-    requests = {"q1": QUERIES[1], "q6": QUERIES[6], "q14": QUERIES[14],
-                "bigint_sum": BIGINT_SUM}
+    requests = {name: BIGINT_SUM if name == "bigint_sum"
+                else QUERIES[int(name[1:])]
+                for name in args.queries.split(",")}
     for name, sql in requests.items():
         runner.run_sql(sql)  # warm-up: generation, ingest, kernel build
         walls = []
@@ -76,11 +84,15 @@ def main() -> int:
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        by_op = sorted(prof.key_averages(),
+        by_op = sorted((a for a in prof.key_averages()
+                        if a.key.startswith("aten::")),
                        key=lambda a: a.self_device_time_total, reverse=True)
         top_device = [(a.key, round(a.self_device_time_total / 1e3, 4),
                        a.count) for a in by_op[:5]
                       if a.self_device_time_total > 0]
+        scatter_ops = {a.key: (a.self_device_time_total / 1e3, a.count)
+                       for a in by_op if a.key in (
+                           "aten::index_add_", "aten::scatter_reduce_")}
 
         cp = cProfile.Profile()
         cp.enable()
@@ -100,7 +112,8 @@ def main() -> int:
             "device_busy_ms": busy_ms if dev else "not measured",
             "idle_share": (1 - busy_ms / wall) if dev else "not measured",
             "device_ops": len(dev), "host_syncs": runner.last_host_syncs,
-            "top_device": top_device, "host_top": host_top,
+            "top_device": top_device, "scatter_ops": scatter_ops,
+            "host_top": host_top,
             "card": card}), flush=True)
     return 0
 
