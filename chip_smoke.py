@@ -10,14 +10,13 @@ non-zero without printing a result):
 2. build: compile every CUDA kernel from ``presto_tpu_torch/csrc``;
 3. kernels: each kernel's wrapper on card tensors, exactly equal to its
    plain PyTorch version at edge cases;
-4. queries: ``LocalRunner(scale_factor=1.0)`` on cuda runs TPC-H Q1, Q6,
-   Q14, a BIGINT sum and the join queries Q2, Q3, Q4, Q5, Q10, Q17, Q18
-   and Q21 through ``run_sql`` (one warm-up, then 5 timed runs each),
-   every result equal to a numpy oracle over the same generated tables
-   (``tools/np_tpch_oracle.py``); the kernels' launch
+4. queries: ``LocalRunner(scale_factor=1.0)`` on cuda runs all 22 TPC-H
+   queries and a BIGINT sum through ``run_sql`` (one warm-up, then 5
+   timed runs each), every result equal to a numpy oracle over the same
+   generated tables (``tools/np_tpch_oracle.py``); the kernels' launch
    counts are reset just before and read just after, each kernel must
-   have launched, and ``sorted_probe`` must have launched in Q3, Q4 and
-   Q21;
+   have launched, and ``sorted_probe`` must have launched in every query
+   of ``PROBED`` (each has a join on one BIGINT key);
 5. measure: each kernel, exactly equal to its plain version, at the
    shapes the main path gives it (``sorted_probe`` at Q14's launch, at
    the largest launch of Q3 and at the largest launch of Q4 and Q21 into
@@ -33,7 +32,10 @@ non-zero without printing a result):
      read from ``torch.profiler`` over windows of 10 calls;
    ``library_ms`` / ``library_device_ms`` are the same two times of one
    PyTorch call computing the same function;
-6. a ``kernels`` JSON line, then the card line, then the result line
+6. like: ``strings.like`` (plain torch, no kernel of its own) on SF1's
+   ``o_comment`` with Q13's pattern, its mask equal to the oracle's
+   ``str.find`` match, timed the same two ways;
+7. a ``kernels`` JSON line, then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -60,8 +62,11 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 
 BIGINT_SUM = ("SELECT sum(l_orderkey) AS s, count(*) AS c FROM lineitem "
               "WHERE l_shipdate <= DATE '1998-09-02'")
-JOIN_QUERIES = (2, 3, 4, 5, 10, 17, 18, 21)
-PROBED = ("q3", "q4", "q21")  # join queries that must launch sorted_probe
+OTHER_QUERIES = (2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19,
+                 20, 21, 22)
+# queries that must launch sorted_probe: each has a join on one BIGINT key
+PROBED = ("q3", "q4", "q21", "q7", "q8", "q9", "q11", "q12", "q13", "q15",
+          "q16", "q19", "q20", "q22")
 REPLACES = {"masked_sum": "presto_tpu/ops/pallas_kernels.py:103",
             "sorted_probe": "presto_tpu/ops/pallas_kernels.py:196"}
 
@@ -349,6 +354,30 @@ def measure_sorted_probe(torch, CK, name, keys, probes, n_valid) -> dict:
         bound_ms=probe_bound_ms(p, nv), bound_by="bytes")
 
 
+def measure_like(torch, runner, NO) -> dict:
+    """``strings.like`` on SF1's o_comment with Q13's pattern: its mask
+    against the oracle's ``str.find`` match, and its call and device
+    times.  The bound reads the byte matrix and lengths once and writes
+    one byte per row."""
+    from presto_tpu_torch.ops import strings as S
+    pattern = "%special%requests%"
+    oc = runner.datasource.scan("orders", ("o_comment",)).cols["o_comment"]
+    got = S.like(oc.values, oc.lengths, pattern).cpu().numpy()
+    want = NO.has_in_order(NO.Tables(runner.datasource).s(
+        "orders", "o_comment"), ("special", "requests"))
+    if not (got == want).all():
+        raise AssertionError(f"like {pattern!r}: {int((got != want).sum())} "
+                             "rows differ from the oracle")
+    fns = {"like": lambda: S.like(oc.values, oc.lengths, pattern)}
+    n, w = oc.values.shape
+    return dict(
+        shape=f"o_comment: N={n} rows x W={w} bytes, {pattern!r}",
+        rows_matched=int(got.sum()), equals_oracle=True,
+        call_ms=call_ms(torch, fns)["like"],
+        device_ms=device_ms(torch, fns)["like"],
+        bound_ms=(n * w + 5 * n) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -380,7 +409,7 @@ def main() -> int:
 
     requests = {"q1": QUERIES[1], "q6": QUERIES[6], "q14": QUERIES[14],
                 "bigint_sum": BIGINT_SUM,
-                **{f"q{q}": QUERIES[q] for q in JOIN_QUERIES}}
+                **{f"q{q}": QUERIES[q] for q in OTHER_QUERIES}}
     runner = LocalRunner(scale_factor=SF)
     t0 = time.perf_counter()
     want = NO.oracle(runner.datasource, tuple(requests))
@@ -446,6 +475,7 @@ def main() -> int:
         s = measure_sorted_probe(torch, CK, shape, *inputs)
         say("measure", kernel="sorted_probe", **s)
         shapes["sorted_probe"].append(s)
+    say("like", **measure_like(torch, runner, NO))
     kernels = []
     for name in sorted(CK.SOURCES):
         s = shapes[name][0]  # the main path's shape

@@ -1,11 +1,13 @@
 """Expression IR → tensor operations (the slice of ``presto_tpu/exec/
-expreval.py`` that TPC-H Q1, Q6, Q14 and integer sums reach).
+expreval.py`` that the 22 TPC-H queries reach).
 
 Evaluation is eager: each IR node becomes a few torch operations on the
 chunk's device.  Layout-aware as in the reference engine:
 
 - DICT columns evaluate string predicates on the (tiny) host dictionary
   and gather through the codes (``DictionaryAwarePageProjection``).
+- BYTES columns (``[N, W]`` uint8 + lengths) evaluate LIKE, IN and
+  substring as byte-matrix operations (``ops/strings.py``).
 - Decimals are int64 unscaled; DECIMAL(p>18) values are (hi, lo) int64
   word pairs ``[N, 2]`` (``ops/int128.py``), aligned and rounded per
   Trino's rules.
@@ -13,10 +15,12 @@ chunk's device.  Layout-aware as in the reference engine:
 Null semantics: every value carries optional validity; comparisons are
 null-poisoning; AND/OR are 3-valued; filters drop null predicates.
 
-What the four requests do not reach is not ported yet and raises
-``NotImplementedError``: DOUBLE arithmetic, byte-string (BYTES) columns,
-NULL/boolean/string literals, IN, IS NULL, negation, scalar functions and
-nested types.
+What TPC-H does not reach is not ported yet and raises
+``NotImplementedError``: DOUBLE arithmetic, NULL/boolean/string literals
+outside a dictionary compare, IS NULL, negation, scalar functions, nested
+types, LIKE with '_' on a BYTES column, substring of a dictionary column,
+IN over other than dictionary, BYTES, integer and date columns, and
+EXTRACT of a zoned timestamp.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import PLAIN, DICT
+from ..data.column import PLAIN, DICT, BYTES
 from ..ops import decimal as D
 from ..ops import int128 as I128
+from ..ops import strings as S
 from ..sql import ir
 from .columns import Chunk, DCol
 from .plan import _scale_of
@@ -119,13 +124,19 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
 
     if isinstance(expr, ir.Like):
         col = eval_expr(expr.arg, chunk)
-        if col.kind != DICT:
+        if col.kind == DICT:
+            pat = expr.pattern
+            m = _dict_predicate(col, lambda s, p=pat: _host_like(s, p))
+        elif col.kind == BYTES:
+            m = S.like(col.values, col.lengths, expr.pattern)
+        else:
             raise NotImplementedError(f"LIKE on a {col.kind} column")
-        pat = expr.pattern
-        m = _dict_predicate(col, lambda s, p=pat: _host_like(s, p))
         if expr.negated:
             m = ~m
         return DCol(T.BOOLEAN, PLAIN, m, validity=col.validity)
+
+    if isinstance(expr, ir.InList):
+        return _in_list(expr, chunk)
 
     if isinstance(expr, ir.Between):
         lo = ir.Compare(">=", expr.arg, expr.lo)
@@ -135,7 +146,70 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
     if isinstance(expr, ir.Case):
         return _eval_case(expr, chunk)
 
+    if isinstance(expr, ir.ExtractYear):
+        col = eval_expr(expr.arg, chunk)
+        return DCol(T.BIGINT, PLAIN, year_from_days(_to_days(col)),
+                    validity=col.validity)
+
+    if isinstance(expr, ir.Substring):
+        col = eval_expr(expr.arg, chunk)
+        if col.kind != BYTES:
+            raise NotImplementedError(f"substring of a {col.kind} column")
+        v, lens = S.substring(col.values, col.lengths, expr.start, expr.size)
+        return DCol(expr.dtype, BYTES, v, lens, col.validity)
+
     raise NotImplementedError(type(expr).__name__)
+
+
+def _in_list(expr: ir.InList, chunk: Chunk) -> DCol:
+    """``x IN (literals)``: a dictionary predicate, or an OR of equalities
+    (byte strings, integers, dates)."""
+    col = eval_expr(expr.arg, chunk)
+    if col.kind == DICT:
+        vals = set(expr.values)
+        m = _dict_predicate(col, lambda s: s in vals)
+    elif col.kind == BYTES:
+        m = torch.zeros((chunk.n_rows,), dtype=torch.bool,
+                        device=col.values.device)
+        for v in expr.values:
+            m = m | S.eq_literal(col.values, col.lengths, v)
+    elif col.kind == PLAIN and col.values.dim() == 1 and (
+            T.is_integral(col.dtype) or isinstance(col.dtype, T.DateType)):
+        m = torch.zeros((chunk.n_rows,), dtype=torch.bool,
+                        device=col.values.device)
+        for v in expr.values:
+            m = m | (col.values == int(v))
+    else:
+        raise NotImplementedError(f"IN over a {col.kind} {col.dtype} column")
+    return DCol(T.BOOLEAN, PLAIN, m, validity=col.validity)
+
+
+def year_from_days(days: torch.Tensor) -> torch.Tensor:
+    """Civil year of days since 1970-01-01 (Hinnant's civil_from_days);
+    every division floors, so days before the epoch are right too."""
+    def fdiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    z = days.to(torch.int64) + 719468
+    era = fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = fdiv(doe - fdiv(doe, 1460) + fdiv(doe, 36524) - fdiv(doe, 146096),
+               365)
+    doy = doe - (365 * yoe + fdiv(yoe, 4) - fdiv(yoe, 100))
+    mp = fdiv(5 * doy + 2, 153)  # month index from March
+    # January and February (mp 10, 11) close the civil year that began
+    # the March before
+    return yoe + era * 400 + (mp >= 10).to(torch.int64)
+
+
+def _to_days(col: DCol) -> torch.Tensor:
+    """date → days; timestamp (micros) → days, floored."""
+    if T.is_timestamp_tz(col.dtype):
+        raise NotImplementedError("EXTRACT of a TIMESTAMP WITH TIME ZONE")
+    v = col.values.to(torch.int64)
+    if isinstance(col.dtype, T.TimestampType):
+        return torch.div(v, 86_400_000_000, rounding_mode="floor")
+    return v
 
 
 def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
@@ -182,9 +256,13 @@ def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
 
 
 def _host_like(s: str, pattern: str) -> bool:
+    """SQL LIKE of one string: '%' matches any run of characters, '_'
+    exactly one (Trino's semantics; the JAX package's dictionary LIKE
+    matches '_' only as itself)."""
     import re
-    rx = "^" + ".*".join(re.escape(p) for p in pattern.split("%")) + "$"
-    return re.match(rx, s, re.S) is not None
+    rx = "".join(".*" if ch == "%" else "." if ch == "_" else re.escape(ch)
+                 for ch in pattern)
+    return re.fullmatch(rx, s, re.S) is not None
 
 
 def _cast(col: DCol, to: T.DataType) -> DCol:

@@ -16,10 +16,17 @@ Operators ↔ reference:
                         and expanding builds, inner/left/semi/anti/mark/
                         full, residual filters
 - PhysSort/Limit      ← OrderByOperator / Limit
+- PhysScalarBind      ← uncorrelated scalar subquery (EnforceSingleRow +
+                        join): one host read per binding
+
+Aggregates: count, sum, decimal avg, min/max of integers, dates and
+decimals, arbitrary, and count(DISTINCT x) through a second dedup pass
+over (group, value) pairs.
 
 Not ported yet (they raise ``NotImplementedError``): windows,
-MATCH_RECOGNIZE, UNION, UNNEST, GROUPING SETS, scalar subqueries, DISTINCT
-and nested-value aggregates, and the partition-at-a-time memory tiers.
+MATCH_RECOGNIZE, UNION, UNNEST, GROUPING SETS, DISTINCT on any aggregate
+but count, avg of a non-decimal (a DOUBLE result), nested-value
+aggregates, and the partition-at-a-time memory tiers.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from ..ops import sort as SORT
 from .columns import Chunk, DCol
 from .expreval import eval_expr, eval_predicate
 from .plan import (AggSpec, PhysFilter, PhysHashAggregate, PhysHashJoin,
-                   PhysLimit, PhysOp, PhysProject, PhysScan,
+                   PhysLimit, PhysOp, PhysProject, PhysScalarBind, PhysScan,
                    PhysSort, _agg_output_type)
 
 SEG_DIRECT_CAP = 512  # largest key domain grouped by its composite code
@@ -79,6 +86,8 @@ def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
         return out if plan.limit is None else _exec_limit(out, plan.limit)
     if isinstance(plan, PhysLimit):
         return _exec_limit(execute(plan.child, ctx), plan.n)
+    if isinstance(plan, PhysScalarBind):
+        return _exec_scalar_bind(plan, ctx)
     raise NotImplementedError(f"{type(plan).__name__} on the torch path")
 
 
@@ -112,6 +121,50 @@ def _exec_limit(child: Chunk, n: int) -> Chunk:
                        c.dictionary)
             for name, c in child.cols.items()}
     return Chunk(cols, child.mask[:n])
+
+
+def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
+    """Each binding's subquery result, read on the host once (its live
+    row count, then the first live row's validity and value words in the
+    same tensor) and broadcast as a column of the child: NULL when the
+    subquery returns no row, an error when it returns more than one."""
+    child = execute(plan.child, ctx)
+    n = child.n_rows
+    dev = child.mask.device
+    cols = dict(child.cols)
+    for name, sub in plan.bindings:
+        sc = execute(sub, ctx)
+        if len(sc.cols) != 1:
+            raise ValueError(f"scalar subquery {name} returns "
+                             f"{len(sc.cols)} columns, not one")
+        (c,) = sc.cols.values()
+        if c.kind != PLAIN or c.values.is_floating_point():
+            raise NotImplementedError(
+                f"scalar subquery of a {c.kind} {c.dtype} column")
+        width = 2 if c.values.dim() == 2 else 1
+        shape = (n, 2) if width == 2 else (n,)
+        if sc.n_rows:
+            first = sc.mask.to(torch.uint8).argmax().reshape(1)
+            row = c.take(first)
+            ctx.host_syncs += 1
+            word = torch.cat([sc.mask.sum().reshape(1),
+                              row.valid_or_true().to(torch.int64),
+                              row.values.reshape(-1).to(torch.int64)]
+                             ).tolist()
+        else:
+            word = [0]
+        if word[0] > 1:
+            raise ValueError(f"scalar subquery {name} returned {word[0]} "
+                             "rows: it must return at most one")
+        if word[0] == 0 or not word[1]:
+            vals = torch.zeros(shape, dtype=torch.int64, device=dev)
+            valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+        else:
+            vals = torch.tensor(word[2:], dtype=torch.int64,
+                                device=dev).expand(n, width).reshape(shape)
+            valid = None
+        cols[name] = DCol(c.dtype, PLAIN, vals.contiguous(), validity=valid)
+    return Chunk(cols, child.mask)
 
 
 # ---------------------------------------------------------------- keys
@@ -236,8 +289,9 @@ def _sort(chunk: Chunk, keys) -> Chunk:
 def _exec_agg(plan: PhysHashAggregate, ctx: ExecContext) -> Chunk:
     child = execute(plan.child, ctx)
     for spec in plan.aggs:
-        if spec.distinct:
-            raise NotImplementedError("DISTINCT aggregates on the torch path")
+        if spec.distinct and spec.func != "count":
+            raise NotImplementedError(
+                f"{spec.func}(DISTINCT) on the torch path")
     if not plan.groups:
         return _exec_global_agg(plan, child)
     group_exprs = tuple(e for _, e in plan.groups)
@@ -256,8 +310,32 @@ def _exec_agg(plan: PhysHashAggregate, ctx: ExecContext) -> Chunk:
     for name, e in plan.groups:
         out[name] = eval_expr(e, child).take(rep, valid=gvalid)
     for spec in plan.aggs:
-        out[spec.name] = _agg_col(spec, child, slot, capacity, gvalid)
+        out[spec.name] = (
+            _agg_distinct(spec, child, slot, capacity, gvalid, ctx)
+            if spec.distinct else
+            _agg_col(spec, child, slot, capacity, gvalid))
     return _maybe_compact(Chunk(out, gvalid), ctx)
+
+
+def _agg_distinct(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid,
+                  ctx: ExecContext) -> DCol:
+    """count(DISTINCT x) per group: a second dedup pass over the (group,
+    x) pairs, then a count of the distinct pairs per group.  Each overflow
+    check of the pair table is a host read."""
+    c = eval_expr(spec.arg, chunk)
+    pair_mask = chunk.mask & (slot >= 0) & c.valid_or_true()
+    pkeys = [slot.to(torch.int64)] + _col_keys(c)
+    pair_cap = capacity
+    while True:
+        owner2, _, overflow = HT.insert(pkeys, pair_mask, pair_cap)
+        if not _sync_int(ctx, overflow):
+            break
+        pair_cap *= 2
+    rep_valid = owner2 != HT.EMPTY
+    rep = owner2.to(torch.int64).clamp(0, max(chunk.n_rows - 1, 0))
+    rep_group = torch.where(rep_valid, slot[rep], -1)
+    return DCol(T.BIGINT, PLAIN, A.seg_count(rep_group, rep_valid, capacity),
+                validity=gvalid)
 
 
 def _seg_sum128(vals, slot, vmask, capacity):
@@ -332,20 +410,43 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         c = eval_expr(spec.arg, chunk)
         m = chunk.mask & c.valid_or_true()
         ot = _agg_output_type(spec)
+        nonempty = (A.g_count(m) > 0).reshape(1)
+        if spec.distinct:
+            # one dense id per distinct value: no more ids than rows
+            owner, _, _ = HT.insert(_col_keys(c), m, max(chunk.n_rows, 1))
+            v = (owner != HT.EMPTY).to(torch.int64).sum().reshape(1)
+            out[spec.name] = DCol(T.BIGINT, PLAIN, v)
+            continue
         if spec.func == "count":
             out[spec.name] = DCol(T.BIGINT, PLAIN, A.g_count(m).reshape(1))
-        elif spec.func == "sum" and T.is_long_decimal(ot):
-            out[spec.name] = DCol(ot, PLAIN,
-                                  I128.pack(*_g_sum128(c.values, m))
-                                  .reshape(1, 2),
-                                  validity=(A.g_count(m) > 0).reshape(1))
+            continue
+        if c.kind != PLAIN or c.values.is_floating_point() \
+                or c.values.dtype == torch.bool \
+                or (spec.func == "avg" and not T.is_decimal(c.dtype)):
+            # an integer average is a DOUBLE, which is not ported
+            raise NotImplementedError(
+                f"global {spec.func}({c.dtype}, {c.kind}) on the torch path")
+        if spec.func == "sum" and T.is_long_decimal(ot):
+            v = I128.pack(*_g_sum128(c.values, m)).reshape(1, 2)
         elif spec.func == "sum" and ot == T.BIGINT:
-            out[spec.name] = DCol(ot, PLAIN,
-                                  A.g_sum(c.values, m, torch.int64).reshape(1),
-                                  validity=(A.g_count(m) > 0).reshape(1))
+            v = A.g_sum(c.values, m, torch.int64).reshape(1)
+        elif spec.func == "avg":
+            # the int128 sum over the count, HALF_UP
+            cnt = A.g_count(m).clamp_min(1).reshape(1)
+            hi, lo = _g_sum128(c.values, m)
+            qhi, qlo = I128.div_round_half_up(
+                hi.reshape(1), lo.reshape(1), *I128.from_i64(cnt))
+            v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
+        elif spec.func in ("min", "max") and c.values.dim() == 2:
+            f = I128.g_min128 if spec.func == "min" else I128.g_max128
+            v = I128.pack(*f(c.values, m)).reshape(1, 2)
+        elif spec.func in ("min", "max"):
+            f = A.g_min if spec.func == "min" else A.g_max
+            v = f(c.values, m).to(c.values.dtype).reshape(1)
         else:
             raise NotImplementedError(
                 f"global {spec.func}({c.dtype}) on the torch path")
+        out[spec.name] = DCol(ot, PLAIN, v, validity=nonempty)
     return Chunk(out, torch.ones((1,), dtype=torch.bool,
                                  device=chunk.mask.device))
 

@@ -263,10 +263,26 @@ def g_sum128_from_i128(vals2d, mask):
     return add(*r, hi_part, torch.zeros_like(hi_part))
 
 
-# ------------------------------------------------- segment extremes
+# ------------------------------------------------- extremes
 #
 # int128 order is lexicographic (hi signed, lo unsigned): reduce the hi
 # word first, then the lo word among the rows tied at the extreme hi.
+# With no row in the mask the words are the int64 extremes' (the caller's
+# validity says NULL).
+
+def g_min128(vals2d, mask) -> I64Pair:
+    hi, lo = unpack(vals2d)
+    h = torch.where(mask, hi, 2**63 - 1).min()
+    tied = mask & (hi == h)
+    return h, torch.where(tied, lo ^ SIGN, 2**63 - 1).min() ^ SIGN
+
+
+def g_max128(vals2d, mask) -> I64Pair:
+    hi, lo = unpack(vals2d)
+    h = torch.where(mask, hi, SIGN).max()
+    tied = mask & (hi == h)
+    return h, torch.where(tied, lo ^ SIGN, SIGN).max() ^ SIGN
+
 
 def seg_min128(vals2d, group, mask, capacity):
     from . import agg as A

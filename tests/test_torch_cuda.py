@@ -189,7 +189,7 @@ def test_probe_counts_repeated_build_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [3, 4, 21])
+@pytest.mark.parametrize("q", [3, 4, 9, 13, 16, 21, 22])
 def test_join_query_on_card_equals_cpu(card, q):
     """A join query of TPC-H at SF0.01 on the card equals the port on the
     CPU, and its joins went through the kernel."""

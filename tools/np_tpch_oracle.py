@@ -1,12 +1,13 @@
-"""TPC-H Q1, Q2, Q3, Q4, Q5, Q6, Q10, Q14, Q17, Q18, Q21 and a BIGINT sum
-in numpy, over the host tables of ``presto_tpu_torch``'s data source
-(``DataSource.read_host``).
+"""All 22 TPC-H queries and a BIGINT sum in numpy, over the host tables
+of ``presto_tpu_torch``'s data source (``DataSource.read_host``).
 
 An oracle independent of the engine: no pandas, no torch, no engine code,
 only the generated host columns and numpy.  Decimals stay unscaled
 integers with exact int64 sums; a division rounds half away from zero, as
-the engine's decimals do.  Each function returns the result as the
-engine's ``{column: col.to_pylist()}``, rows in the query's order.
+the engine's decimals do.  LIKE is Python's own ``str.find`` and
+``str.startswith``; years come from numpy's calendar.  Each function
+returns the result as the engine's ``{column: col.to_pylist()}``, rows in
+the query's order.
 
     import np_tpch_oracle as NO          # with tools/ on sys.path
     want = NO.oracle(runner.datasource, ("q3", "q18"))
@@ -347,9 +348,290 @@ def q21(t: Tables) -> dict:
             "numwait": [int(cnt[i]) for i in order]}
 
 
+# ------------------------------------------------------------ Q7-Q22
+
+def year(d: np.ndarray) -> np.ndarray:
+    """Civil year of days since 1970-01-01 (numpy's calendar)."""
+    return d.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def has_in_order(strings, segs) -> np.ndarray:
+    """bool per string: LIKE '%seg1%seg2%...%', each segment found after
+    the end of the one before (``str.find``)."""
+    def hit(s: str) -> bool:
+        pos = 0
+        for seg in segs:
+            i = s.find(seg, pos)
+            if i < 0:
+                return False
+            pos = i + len(seg)
+        return True
+    return np.fromiter((hit(s) for s in strings), dtype=bool,
+                       count=len(strings))
+
+
+def nation_key(t: Tables, name: str) -> int:
+    (row,) = np.flatnonzero(t.where("nation", "n_name",
+                                    lambda s: s == name))
+    return int(t.v("nation", "n_nationkey")[row])
+
+
+def pair_key(a: np.ndarray, b: np.ndarray, b_max: int) -> np.ndarray:
+    """One int64 per (a, b) pair of non-negative keys, b <= b_max."""
+    return a.astype(np.int64) * (b_max + 1) + b
+
+
+def q7(t: Tables) -> dict:
+    ship = t.v("lineitem", "l_shipdate")
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), t.v("lineitem", "l_suppkey"))
+    orow, _ = lookup(t.v("orders", "o_orderkey"), t.v("lineitem", "l_orderkey"))
+    crow, _ = lookup(t.v("customer", "c_custkey"), t.v("orders", "o_custkey"))
+    sn = t.v("supplier", "s_nationkey")[srow]
+    cn = t.v("customer", "c_nationkey")[crow[orow]]
+    fr, de = nation_key(t, "FRANCE"), nation_key(t, "GERMANY")
+    li = np.flatnonzero((ship >= days("1995-01-01"))
+                        & (ship <= days("1996-12-31"))
+                        & (((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))))
+    yr = year(ship[li])
+    keys, rev = group_sum(pair_key(sn[li] * 25 + cn[li], yr, 9999),
+                          _revenue(t, li))
+    nrow, _ = lookup(t.v("nation", "n_nationkey"), np.arange(25))
+    names = t.s("nation", "n_name")[nrow]
+    nations, years = keys // 10000, keys % 10000
+    cols = {"supp_nation": list(names[nations // 25]),
+            "cust_nation": list(names[nations % 25]),
+            "l_year": _py(years), "revenue": _py(rev)}
+    order = sorted(range(len(keys)), key=lambda i: (
+        cols["supp_nation"][i], cols["cust_nation"][i], years[i]))
+    return _rows(cols, order)
+
+
+def q8(t: Tables) -> dict:
+    p_ok = t.where("part", "p_type", lambda s: s == "ECONOMY ANODIZED STEEL")
+    prow, _ = lookup(t.v("part", "p_partkey"), t.v("lineitem", "l_partkey"))
+    orow, _ = lookup(t.v("orders", "o_orderkey"), t.v("lineitem", "l_orderkey"))
+    crow, _ = lookup(t.v("customer", "c_custkey"), t.v("orders", "o_custkey"))
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), t.v("lineitem", "l_suppkey"))
+    odate = t.v("orders", "o_orderdate")[orow]
+    (amer,) = np.flatnonzero(t.where("region", "r_name",
+                                     lambda s: s == "AMERICA"))
+    nrow, _ = lookup(t.v("nation", "n_nationkey"),
+                     t.v("customer", "c_nationkey")[crow[orow]])
+    in_america = t.v("nation", "n_regionkey")[nrow] == \
+        t.v("region", "r_regionkey")[amer]
+    li = np.flatnonzero(p_ok[prow] & in_america
+                        & (odate >= days("1995-01-01"))
+                        & (odate <= days("1996-12-31")))
+    vol = _revenue(t, li)
+    brazil = t.v("supplier", "s_nationkey")[srow[li]] == \
+        nation_key(t, "BRAZIL")
+    years, den = group_sum(year(odate[li]), vol)
+    _, num = group_sum(year(odate[li]), np.where(brazil, vol, 0))
+    # decimal(38,4) / decimal(38,4) at scale 4, HALF_UP
+    return {"o_year": _py(years),
+            "mkt_share": [div_half_up(int(a) * 10**4, int(b))
+                          for a, b in zip(num, den)]}
+
+
+def q9(t: Tables) -> dict:
+    green = has_in_order(t.s("part", "p_name"), ("green",))
+    lpart, lsupp = t.v("lineitem", "l_partkey"), t.v("lineitem", "l_suppkey")
+    prow, _ = lookup(t.v("part", "p_partkey"), lpart)
+    li = np.flatnonzero(green[prow])
+    smax = int(t.v("supplier", "s_suppkey").max())
+    psrow, _ = lookup(pair_key(t.v("partsupp", "ps_partkey"),
+                               t.v("partsupp", "ps_suppkey"), smax),
+                      pair_key(lpart[li], lsupp[li], smax))
+    amount = _revenue(t, li) - t.v("partsupp", "ps_supplycost")[psrow] \
+        * t.v("lineitem", "l_quantity")[li]
+    orow, _ = lookup(t.v("orders", "o_orderkey"),
+                     t.v("lineitem", "l_orderkey")[li])
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), lsupp[li])
+    nation = t.v("supplier", "s_nationkey")[srow]
+    keys, profit = group_sum(
+        pair_key(nation, year(t.v("orders", "o_orderdate")[orow]), 9999),
+        amount)
+    nrow, _ = lookup(t.v("nation", "n_nationkey"), keys // 10000)
+    names = t.s("nation", "n_name")[nrow]
+    years = keys % 10000
+    order = sorted(range(len(keys)), key=lambda i: (names[i], -years[i]))
+    return _rows({"nation": list(names), "o_year": _py(years),
+                  "sum_profit": _py(profit)}, order)
+
+
+def _german_partsupp(t: Tables):
+    """(partsupp rows of German suppliers, ps_supplycost * ps_availqty of
+    each at scale 2)."""
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), t.v("partsupp", "ps_suppkey"))
+    rows = np.flatnonzero(t.v("supplier", "s_nationkey")[srow]
+                          == nation_key(t, "GERMANY"))
+    return rows, t.v("partsupp", "ps_supplycost")[rows] \
+        * t.v("partsupp", "ps_availqty")[rows].astype(np.int64)
+
+
+def q11(t: Tables) -> dict:
+    rows, v = _german_partsupp(t)
+    total = int(v.sum())
+    keys, value = group_sum(t.v("partsupp", "ps_partkey")[rows], v)
+    # sum (scale 2) > total * 0.0001000 (scale 9)
+    keep = np.flatnonzero(value * 10**7 > total * 1000)
+    order = keep[np.lexsort((keys[keep], -value[keep]))]
+    return {"ps_partkey": _py(keys[order]), "value": _py(value[order])}
+
+
+def q12(t: Tables) -> dict:
+    commit = t.v("lineitem", "l_commitdate")
+    receipt = t.v("lineitem", "l_receiptdate")
+    mode = t.col("lineitem", "l_shipmode")
+    mode_ok = t.where("lineitem", "l_shipmode",
+                      lambda s: s in ("MAIL", "SHIP"))
+    li = np.flatnonzero(mode_ok & (commit < receipt)
+                        & (t.v("lineitem", "l_shipdate") < commit)
+                        & (receipt >= days("1994-01-01"))
+                        & (receipt < days("1995-01-01")))
+    orow, _ = lookup(t.v("orders", "o_orderkey"),
+                     t.v("lineitem", "l_orderkey")[li])
+    high = t.where("orders", "o_orderpriority",
+                   lambda s: s in ("1-URGENT", "2-HIGH"))[orow]
+    codes = np.asarray(mode.values)[li]
+    out = {"l_shipmode": [], "high_line_count": [], "low_line_count": []}
+    for code in sorted(np.unique(codes).tolist(),
+                       key=lambda c: str(mode.dictionary[c])):
+        sel = codes == code
+        out["l_shipmode"].append(str(mode.dictionary[code]))
+        out["high_line_count"].append(int((sel & high).sum()))
+        out["low_line_count"].append(int((sel & ~high).sum()))
+    return out
+
+
+def q13(t: Tables) -> dict:
+    special = has_in_order(t.s("orders", "o_comment"),
+                           ("special", "requests"))
+    ckey = t.v("customer", "c_custkey")
+    per_cust = np.bincount(t.v("orders", "o_custkey")[~special],
+                           minlength=int(ckey.max()) + 1)
+    counts, custdist = np.unique(per_cust[ckey], return_counts=True)
+    order = np.lexsort((-counts, -custdist))
+    return {"c_count": _py(counts[order]), "custdist": _py(custdist[order])}
+
+
+def q15(t: Tables) -> dict:
+    ship = t.v("lineitem", "l_shipdate")
+    li = np.flatnonzero((ship >= days("1996-01-01"))
+                        & (ship < days("1996-04-01")))
+    keys, rev = group_sum(t.v("lineitem", "l_suppkey")[li], _revenue(t, li))
+    top = np.flatnonzero(rev == rev.max())  # keys ascending
+    srow, _ = lookup(t.v("supplier", "s_suppkey"), keys[top])
+    return {"s_suppkey": _py(keys[top]),
+            "s_name": list(t.s("supplier", "s_name")[srow]),
+            "s_address": list(t.s("supplier", "s_address")[srow]),
+            "s_phone": list(t.s("supplier", "s_phone")[srow]),
+            "total_revenue": _py(rev[top])}
+
+
+def q16(t: Tables) -> dict:
+    complaints = has_in_order(t.s("supplier", "s_comment"),
+                              ("Customer", "Complaints"))
+    bad = t.v("supplier", "s_suppkey")[complaints]
+    size = t.v("part", "p_size")
+    p_ok = (t.where("part", "p_brand", lambda s: s != "Brand#45")
+            & ~t.where("part", "p_type",
+                       lambda s: s.startswith("MEDIUM POLISHED"))
+            & np.isin(size, (49, 14, 23, 45, 19, 3, 36, 9)))
+    supp = t.v("partsupp", "ps_suppkey")
+    prow, _ = lookup(t.v("part", "p_partkey"), t.v("partsupp", "ps_partkey"))
+    rows = np.flatnonzero(p_ok[prow] & ~np.isin(supp, bad))
+    brand, ptype = t.col("part", "p_brand"), t.col("part", "p_type")
+    # group = (brand code, type code, size), then distinct suppliers
+    group = pair_key(pair_key(np.asarray(brand.values)[prow[rows]],
+                              np.asarray(ptype.values)[prow[rows]],
+                              len(ptype.dictionary)),
+                     size[prow[rows]], int(size.max()))
+    groups, cnt = _distinct_per(group, supp[rows])
+    bt, sizes = groups // (int(size.max()) + 1), groups % (int(size.max()) + 1)
+    nt = len(ptype.dictionary) + 1
+    cols = {"p_brand": [str(brand.dictionary[c]) for c in bt // nt],
+            "p_type": [str(ptype.dictionary[c]) for c in bt % nt],
+            "p_size": _py(sizes), "supplier_cnt": _py(cnt)}
+    order = sorted(range(len(groups)), key=lambda i: (
+        -cnt[i], cols["p_brand"][i], cols["p_type"][i], sizes[i]))
+    return _rows(cols, order)
+
+
+def q19(t: Tables) -> dict:
+    prow, _ = lookup(t.v("part", "p_partkey"), t.v("lineitem", "l_partkey"))
+    qty = t.v("lineitem", "l_quantity")
+    size = t.v("part", "p_size")[prow]
+    base = t.where("lineitem", "l_shipmode",
+                   lambda s: s in ("AIR", "AIR REG")) & t.where(
+        "lineitem", "l_shipinstruct", lambda s: s == "DELIVER IN PERSON")
+    keep = np.zeros(qty.shape[0], dtype=bool)
+    for brand, containers, q_lo, max_size in (
+            ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+            ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10,
+             10),
+            ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 15)):
+        part_ok = t.where("part", "p_brand", lambda s: s == brand) \
+            & t.where("part", "p_container", lambda s: s in containers)
+        keep |= (part_ok[prow] & (qty >= q_lo * 100)
+                 & (qty <= (q_lo + 10) * 100) & (size >= 1)
+                 & (size <= max_size))
+    li = np.flatnonzero(base & keep)
+    return {"revenue": [int(_revenue(t, li).sum()) if li.size else None]}
+
+
+def q20(t: Tables) -> dict:
+    forest = np.fromiter((s.startswith("forest")
+                          for s in t.s("part", "p_name")), dtype=bool)
+    smax = int(t.v("supplier", "s_suppkey").max())
+    ship = t.v("lineitem", "l_shipdate")
+    li = np.flatnonzero((ship >= days("1994-01-01"))
+                        & (ship < days("1995-01-01")))
+    keys, qsum = group_sum(pair_key(t.v("lineitem", "l_partkey")[li],
+                                    t.v("lineitem", "l_suppkey")[li], smax),
+                           t.v("lineitem", "l_quantity")[li])
+    ps_part, ps_supp = t.v("partsupp", "ps_partkey"), \
+        t.v("partsupp", "ps_suppkey")
+    ps = np.flatnonzero(np.isin(ps_part, t.v("part", "p_partkey")[forest]))
+    qrow, found = lookup(keys, pair_key(ps_part[ps], ps_supp[ps], smax))
+    # ps_availqty > 0.5 * sum(l_quantity): at scale 3, availqty * 1000 >
+    # 5 * sum (scale 2); no lineitem row gives NULL, which drops the row
+    avail = t.v("partsupp", "ps_availqty")[ps].astype(np.int64)
+    supp = np.unique(ps_supp[ps][found & (avail * 200 > qsum[qrow])])
+    srow = np.flatnonzero(np.isin(t.v("supplier", "s_suppkey"), supp)
+                          & (t.v("supplier", "s_nationkey")
+                             == nation_key(t, "CANADA")))
+    names = t.s("supplier", "s_name")[srow]
+    order = sorted(range(len(srow)), key=lambda i: names[i])
+    return _rows({"s_name": list(names),
+                  "s_address": list(t.s("supplier", "s_address")[srow])},
+                 order)
+
+
+def q22(t: Tables) -> dict:
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cc = np.array([p[:2] for p in t.s("customer", "c_phone")], dtype=object)
+    sel = np.isin(cc, codes)
+    bal = t.v("customer", "c_acctbal")
+    pos = sel & (bal > 0)
+    avg = div_half_up(int(bal[pos].sum()), int(pos.sum()))  # scale 2
+    has_orders = np.isin(t.v("customer", "c_custkey"), t.v("orders", "o_custkey"))
+    rows = np.flatnonzero(sel & (bal > avg) & ~has_orders)
+    out = {"cntrycode": [], "numcust": [], "totacctbal": []}
+    for code in sorted(set(cc[rows].tolist())):
+        r = rows[cc[rows] == code]
+        out["cntrycode"].append(code)
+        out["numcust"].append(int(r.size))
+        out["totacctbal"].append(int(bal[r].sum()))
+    return out
+
+
 QUERIES = {"q1": q1, "q6": q6, "q14": q14, "bigint_sum": bigint_sum,
            "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q10": q10, "q17": q17,
-           "q18": q18, "q21": q21}
+           "q18": q18, "q21": q21, "q7": q7, "q8": q8, "q9": q9,
+           "q11": q11, "q12": q12, "q13": q13, "q15": q15, "q16": q16,
+           "q19": q19, "q20": q20, "q22": q22}
 
 
 def oracle(ds, names=tuple(QUERIES)) -> dict:

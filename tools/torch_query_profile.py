@@ -2,10 +2,11 @@
 """Where one warm query's time goes in presto_tpu_torch, on one CUDA card.
 
     python3 tools/torch_query_profile.py [--sf 1.0] [--runs 3] \
-        [--queries q1,q6,q14,bigint_sum,q2,q3,q4,q5,q10,q17,q18,q21]
+        [--queries q1,q6,q14,bigint_sum,q2,q3]
 
-For the named requests (TPC-H queries and the BIGINT sum; all twelve by
-default) at the given scale factor, after one warm-up run each, prints
+For the named requests (TPC-H queries and the BIGINT sum; by default the
+22 queries and the sum, as ``chip_smoke.py`` orders them) at the given
+scale factor, after one warm-up run each, prints
 one JSON line per query with:
 
 - ``wall_ms``: host wall time of one warm ``run_sql`` (median of ``runs``),
@@ -49,8 +50,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--runs", type=int, default=3)
-    ap.add_argument("--queries", default="q1,q6,q14,bigint_sum,q2,q3,q4,"
-                    "q5,q10,q17,q18,q21")
+    ap.add_argument("--queries", default="q1,q6,q14,bigint_sum," + ",".join(
+        f"q{q}" for q in range(2, 23) if q not in (6, 14)))
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
