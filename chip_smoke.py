@@ -35,7 +35,20 @@ non-zero without printing a result):
 6. like: ``strings.like`` (plain torch, no kernel of its own) on SF1's
    ``o_comment`` with Q13's pattern, its mask equal to the oracle's
    ``str.find`` match, timed the same two ways;
-7. a ``kernels`` JSON line, then the card line, then the result line
+7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
+   the 77 TPC-DS queries the port runs (``tpcds.queries.RUNS``) run
+   through ``run_sql`` (one warm-up, then 3 timed runs each; launch counts
+   reset just before and read just after, ``sorted_probe`` required in
+   every query but ``TPCDS_UNPROBED``); ``sorted_probe`` is measured, in
+   a fresh process of this script (``measure_apart``), at the launch of
+   those queries with the most probes, and at the one with the most
+   probes into a build of 2^16 or more keys; every SF1 result
+   (each run) equals the port's own CPU run over the same generated
+   tables, DOUBLE columns to 1e-9 relative; and the 77 queries on the card
+   at SF0.02 equal SQLite under the JAX package's battery rule
+   (``tools/sqlite_tpcds_oracle.py``; the SQLite step runs in a thread
+   beside the CPU step);
+8. a ``kernels`` JSON line, then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -69,6 +82,15 @@ PROBED = ("q3", "q4", "q21", "q7", "q8", "q9", "q11", "q12", "q13", "q15",
           "q16", "q19", "q20", "q22")
 REPLACES = {"masked_sum": "presto_tpu/ops/pallas_kernels.py:103",
             "sorted_probe": "presto_tpu/ops/pallas_kernels.py:196"}
+TPCDS_SF = 1.0             # the smallest scale the TPC-DS spec defines
+TPCDS_CHECK_SF = 0.02      # the scale held to SQLite
+TPCDS_TIMED_RUNS = 3
+DOUBLE_REL = 1e-9          # DOUBLE columns: atomics reorder the sums
+# TPC-DS queries that launch no sorted_probe: q9 joins nothing (it reads
+# store_sales and reason through scalar subqueries); q41's one join is a
+# self-join of item on the BYTES column i_manufact, whose keys are several
+# 8-byte packs (the lexicographic search, not the kernel)
+TPCDS_UNPROBED = (9, 41)
 
 
 def say(phase: str, **kv) -> None:
@@ -124,7 +146,8 @@ def device_ms(torch, fns: dict) -> dict:
     summed duration of the device activities of CALLS calls, per call,
     each sample one ``torch.profiler`` window, the functions in turns.
     The profiler now and then drops an activity or a whole window's: a
-    window whose count is not a multiple of CALLS is taken again."""
+    window whose count is not a multiple of CALLS is taken again, and
+    after five such windows in a row the script fails."""
     def window(fn) -> float:
         def run():
             for _ in range(CALLS):
@@ -378,6 +401,213 @@ def measure_like(torch, runner, NO) -> dict:
         bound_ms=(n * w + 5 * n) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
+# ---------------------------------------------------------------- tpcds
+
+def tpcds_load(conn, runner) -> dict:
+    """Every column of every TPC-DS table generated on the host and
+    uploaded to the card (the scan cache), timed."""
+    from presto_tpu_torch.tpcds import schema as DS
+    from presto_tpu_torch.utils.memory import col_bytes
+    t0 = time.perf_counter()
+    rows, nbytes = {}, 0
+    for table, cols in DS.TABLE_SCHEMAS.items():
+        chunk = runner.datasource.scan(table, [c for c, _ in cols])
+        rows[table] = chunk.n_rows
+        nbytes += sum(col_bytes(c) for c in chunk.cols.values())
+    return dict(sf=TPCDS_SF, seconds=round(time.perf_counter() - t0, 3),
+                tables=len(rows), rows=rows, device_bytes=nbytes,
+                values=sum(rows[t] * len(c)
+                           for t, c in DS.TABLE_SCHEMAS.items()))
+
+
+LARGE_BUILD = 1 << 16  # valid keys of a whole dimension table's build
+
+
+def tpcds_probe_capture(torch, CK, runner, queries) -> tuple:
+    """One more run of each query with ``CK.set_probe_recorder`` on: the
+    largest ``sorted_probe`` launch of each (probes, valid keys), and,
+    copied as the main path gave them, the inputs of the launch with the
+    most probes and of the one with the most probes into a build of at
+    least LARGE_BUILD valid keys."""
+    best = {"largest": {}, "largest_into_large_build": {}}
+    per_query = {}
+    current = [None]
+
+    def record(keys, probes, n_valid):
+        p, nv = probes.shape[0], int(n_valid)
+        q = current[0]
+        if p > per_query.get(q, (-1, 0))[0]:
+            per_query[q] = (p, nv)
+        for name, ok in (("largest", True),
+                         ("largest_into_large_build", nv >= LARGE_BUILD)):
+            if ok and p > best[name].get("p", -1):
+                best[name].update(p=p, q=q, inputs=(
+                    keys.clone(), probes.clone(),
+                    torch.tensor(nv, device=keys.device)))
+
+    CK.set_probe_recorder(record)
+    try:
+        for q, sql in queries.items():
+            current[0] = q
+            runner.run_sql(sql)
+    finally:
+        CK.set_probe_recorder(None)
+    return best, per_query
+
+
+def tpcds_phase(torch, CK) -> dict:
+    """The TPC-DS main path at SF1 and its two checks (see the module
+    docstring, phase 7).  Returns the kernels' launch counts over the main
+    path and the measured shapes of ``sorted_probe``'s largest launches."""
+    import concurrent.futures
+    import sqlite_tpcds_oracle as SO
+    from presto_tpu_torch.connector import tpcds_connector
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpcds.queries import QUERIES, RUNS
+
+    conn = tpcds_connector(TPCDS_SF)  # one host copy for card and CPU
+    card = LocalRunner(scale_factor=0.01)
+    card.datasource.register(conn)
+    say("tpcds_load", **tpcds_load(conn, card))
+
+    # the main path: counts reset just before, read just after
+    CK.reset_launches()
+    results, per_query = {}, {}
+    for q in RUNS:
+        before = dict(CK.LAUNCHES)
+        t0 = time.perf_counter()
+        results[q] = [card.run_sql(QUERIES[q])]   # warm-up
+        first_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(TPCDS_TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[q].append(card.run_sql(QUERIES[q]))
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        per_query[q] = {k: (CK.LAUNCHES[k] - before[k]) //
+                        (1 + TPCDS_TIMED_RUNS) for k in CK.LAUNCHES}
+        say("tpcds_query", q=q, sf=TPCDS_SF,
+            warm_ms_median=statistics.median(runs), warm_ms=runs,
+            first_run_s=round(first_s, 3), host_syncs=card.last_host_syncs,
+            launches_per_run=per_query[q],
+            rows=results[q][0].row_count)
+    launches = dict(CK.LAUNCHES)
+    unprobed = [q for q in RUNS if per_query[q]["sorted_probe"] <= 0]
+    say("tpcds_launch_check", unprobed=unprobed,
+        allowed=list(TPCDS_UNPROBED), launches=launches,
+        masked_sum_in=[q for q in RUNS if per_query[q]["masked_sum"] > 0])
+    missing = sorted(set(unprobed) - set(TPCDS_UNPROBED))
+    if missing:
+        raise AssertionError(f"TPC-DS queries {missing} did not launch "
+                             "sorted_probe")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} never launched on the TPC-DS path")
+
+    best, largest = tpcds_probe_capture(
+        torch, CK, card, {q: QUERIES[q] for q in RUNS})
+    say("tpcds_probe_shapes", largest_per_query={
+        q: {"probes": p, "n_valid": nv} for q, (p, nv) in largest.items()})
+    if any("inputs" not in b for b in best.values()):
+        raise AssertionError(f"no TPC-DS sorted_probe launch for "
+                             f"{[n for n, b in best.items() if not b]}")
+
+    # the SF0.02 card results, held to SQLite in a thread while the CPU
+    # run of SF1 is the check of the main thread
+    small = LocalRunner(scale_factor=0.01)
+    small.datasource.register(tpcds_connector(TPCDS_CHECK_SF))
+    small_results = {q: small.run_sql(QUERIES[q]) for q in RUNS}
+    torch.cuda.synchronize()
+
+    def sqlite_check() -> dict:
+        t0 = time.perf_counter()
+        db = SO.build_db(small.datasource,
+                         [SO.sqlite_sql(q, QUERIES[q]) for q in RUNS])
+        load_s = time.perf_counter() - t0
+        got, failed = {}, {}
+        for q in RUNS:
+            try:
+                got[q] = SO.check(db, q, QUERIES[q], small_results[q])
+            except AssertionError as e:  # collected, then raised below
+                failed[q] = str(e)[:300]
+        if failed:
+            raise AssertionError(f"TPC-DS SF{TPCDS_CHECK_SF} on the card "
+                                 f"against SQLite: {failed}")
+        return dict(sf=TPCDS_CHECK_SF, load_s=round(load_s, 3),
+                    seconds=round(time.perf_counter() - t0, 3),
+                    queries=len(got), equal=True,
+                    rows={q: r["rows"] for q, r in got.items()},
+                    tie_at_limit=[q for q, r in got.items()
+                                  if r["tie_at_limit"]])
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        sqlite_job = pool.submit(sqlite_check)
+        cpu = LocalRunner(scale_factor=0.01, device="cpu")
+        cpu.datasource.register(conn)
+        t0 = time.perf_counter()
+        for q in RUNS:
+            want = cpu.run_sql(QUERIES[q])
+            for i, got in enumerate(results[q]):
+                SO.same_table(got, want, DOUBLE_REL,
+                              f"TPC-DS q{q} SF1 run {i} vs the CPU")
+        say("tpcds_cpu_check", sf=TPCDS_SF, queries=len(RUNS),
+            runs_each=1 + TPCDS_TIMED_RUNS, equal=True,
+            seconds=round(time.perf_counter() - t0, 3))
+        say("tpcds_sqlite_check", **sqlite_job.result())
+
+    shapes = measure_apart(torch, {f"tpcds_{name}_q{b['q']}": b["inputs"]
+                                   for name, b in best.items()})
+    for shape in shapes:
+        say("measure", kernel="sorted_probe", **shape)
+    return {"launches": launches, "shapes": shapes}
+
+
+MEASURE_ARG = "--measure-probes"
+
+
+def measure_apart(torch, captured: dict) -> list:
+    """``measure_sorted_probe`` at each captured launch (name -> keys,
+    probes, n_valid), in a fresh process of this script started with
+    ``MEASURE_ARG`` and a file of the inputs under build/.  After the
+    TPC-DS main path this process's profiler records only part of a
+    window's device activities, and that stays so after
+    ``torch.cuda.empty_cache()``; a fresh process records them whole."""
+    path = os.path.join(ROOT, "build", "probe_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({name: [x.cpu() for x in inputs]
+                for name, inputs in captured.items()}, path)
+    try:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              MEASURE_ARG, path], capture_output=True,
+                             text=True, timeout=600)
+    finally:
+        os.remove(path)
+    if out.returncode:
+        raise AssertionError(f"the measuring process exited "
+                             f"{out.returncode}: {out.stderr[-4000:]}")
+    shapes = [json.loads(ln[len("[measure] "):])
+              for ln in out.stdout.splitlines()
+              if ln.startswith("[measure] ")]
+    if len(shapes) != len(captured):
+        raise AssertionError(f"the measuring process reported "
+                             f"{len(shapes)} of {len(captured)} shapes")
+    return shapes
+
+
+def measure_probes(path: str) -> int:
+    """The child of ``measure_apart``: one ``measure`` line per launch
+    saved in ``path``, each with its ``shape`` name."""
+    import torch
+    from presto_tpu_torch.ops import cuda_kernels as CK
+    CK.build()
+    for name, inputs in torch.load(path).items():
+        keys, probes, n_valid = (x.cuda() for x in inputs)
+        print("[measure] " + json.dumps(measure_sorted_probe(
+            torch, CK, name, keys, probes, n_valid)), flush=True)
+    return 0
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -476,13 +706,18 @@ def main() -> int:
         say("measure", kernel="sorted_probe", **s)
         shapes["sorted_probe"].append(s)
     say("like", **measure_like(torch, runner, NO))
+    tpcds = tpcds_phase(torch, CK)
+    shapes["sorted_probe"] += tpcds["shapes"]
     kernels = []
     for name in sorted(CK.SOURCES):
         s = shapes[name][0]  # the main path's shape
+        by_path = {"tpch": launches[name],
+                   "tpcds": tpcds["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"presto_tpu_torch/csrc/{CK.SOURCES[name]}",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in shapes[name]),
             "ms": s["call_ms"], "call_ms": s["call_ms"],
             "device_ms": s["device_ms"], "kernel_ms": s["device_ms"],
@@ -501,4 +736,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(measure_probes(sys.argv[2]) if sys.argv[1:2] == [MEASURE_ARG]
+             else main())

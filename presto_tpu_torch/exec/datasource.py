@@ -1,7 +1,8 @@
 """Scan layer: connector SPI → cached device Chunks.
 
 Torch port of ``presto_tpu/exec/datasource.py``: resolves tables through
-the ``CatalogManager`` (the TPC-H connector), reads host columns through
+the ``CatalogManager`` (the TPC-H connector, and any connector
+``register`` attaches, such as TPC-DS's), reads host columns through
 the connector's page source with column pruning, and keeps a
 device-resident column cache on the data source's ``device`` (scans of hot
 tables cost no host→device transfer after first touch).  The cache's byte
@@ -41,6 +42,30 @@ class DataSource:
         self.catalog = CatalogManager()
         self.catalog.register(tpch_connector(scale_factor))
         self.pool = MemoryPool(device_budget_bytes(self.device))
+
+    def register(self, connector) -> None:
+        """Attach another connector (``PluginManager.loadPlugins``).  Its
+        tables shadow same-named ones (TPC-DS's ``customer`` hides
+        TPC-H's), so their cached columns go."""
+        self.catalog.register(connector)
+        tables = set(connector.metadata.list_tables())
+        for key in [k for k in self._cols if k[0] in tables]:
+            del self._cols[key]
+            self.pool.free(key)
+
+    def extra_schemas(self) -> Dict[str, list]:
+        """Schemas of every table of a connector other than tpch (the
+        planner's ``extra_tables``)."""
+        return {t: conn.metadata.columns(t)
+                for conn in self.catalog.connectors() if conn.name != "tpch"
+                for t in conn.metadata.list_tables()}
+
+    def extra_stats(self) -> Dict[str, tuple]:
+        """{table: (row_count, primary_key)} of the same tables (the
+        planner's ``extra_stats``, from the SPI's metadata)."""
+        return {t: (conn.metadata.row_count(t), conn.metadata.primary_key(t))
+                for conn in self.catalog.connectors() if conn.name != "tpch"
+                for t in conn.metadata.list_tables()}
 
     def read_host(self, table: str, columns) -> dict:
         """Host columns of the whole ``table``, as the connector's page

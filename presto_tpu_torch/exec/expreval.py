@@ -1,26 +1,29 @@
 """Expression IR → tensor operations (the slice of ``presto_tpu/exec/
-expreval.py`` that the 22 TPC-H queries reach).
+expreval.py`` that the 22 TPC-H queries and 77 TPC-DS queries reach).
 
 Evaluation is eager: each IR node becomes a few torch operations on the
 chunk's device.  Layout-aware as in the reference engine:
 
-- DICT columns evaluate string predicates on the (tiny) host dictionary
-  and gather through the codes (``DictionaryAwarePageProjection``).
-- BYTES columns (``[N, W]`` uint8 + lengths) evaluate LIKE, IN and
-  substring as byte-matrix operations (``ops/strings.py``).
+- DICT columns evaluate string predicates and transforms (substring,
+  upper) on the (tiny) host dictionary and gather through the codes
+  (``DictionaryAwarePageProjection``).
+- BYTES columns (``[N, W]`` uint8 + lengths) evaluate LIKE, IN,
+  substring, upper, concat and equality as byte-matrix operations
+  (``ops/strings.py``); a string literal is a broadcast BYTES column.
 - Decimals are int64 unscaled; DECIMAL(p>18) values are (hi, lo) int64
   word pairs ``[N, 2]`` (``ops/int128.py``), aligned and rounded per
-  Trino's rules.
+  Trino's rules.  DOUBLE is a PLAIN float64 column.
 
 Null semantics: every value carries optional validity; comparisons are
-null-poisoning; AND/OR are 3-valued; filters drop null predicates.
+null-poisoning; AND/OR are 3-valued; filters drop null predicates; a
+typed NULL literal is a column of its type's layout with no valid row.
 
-What TPC-H does not reach is not ported yet and raises
-``NotImplementedError``: DOUBLE arithmetic, NULL/boolean/string literals
-outside a dictionary compare, IS NULL, negation, scalar functions, nested
-types, LIKE with '_' on a BYTES column, substring of a dictionary column,
-IN over other than dictionary, BYTES, integer and date columns, and
-EXTRACT of a zoned timestamp.
+Not ported yet (they raise ``NotImplementedError``): scalar functions
+other than abs, round, coalesce, upper, concat and date_add; nested
+types; LIKE with '_' on a BYTES column; ordered compares of BYTES
+columns; IN over other than dictionary, BYTES, integer and date columns;
+casts other than among numeric types and among string types; zoned
+timestamps.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..ops import decimal as D
 from ..ops import int128 as I128
 from ..ops import strings as S
 from ..sql import ir
-from .columns import Chunk, DCol
+from .columns import Chunk, DCol, Dictionary
 from .plan import _scale_of
 
 
@@ -82,15 +85,19 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
         return chunk.cols[expr.name]
 
     if isinstance(expr, ir.Literal):
-        v = expr.value
-        if not isinstance(v, int) or isinstance(v, bool) \
-                or not -2**63 <= v < 2**63:
-            raise NotImplementedError(f"{expr.dtype} literal {v!r}")
-        return DCol(expr.dtype, PLAIN, torch.full((n,), v, dtype=torch.int64,
-                                                  device=dev))
+        return _literal(expr, n, dev)
 
     if isinstance(expr, ir.Cast):
+        if isinstance(expr.arg, ir.Literal) and expr.arg.value is None:
+            # CAST(NULL AS t): a NULL in t's own layout
+            return _literal(ir.Literal(None, expr.dtype), n, dev)
         return _cast(eval_expr(expr.arg, chunk), expr.dtype)
+
+    if isinstance(expr, ir.Negate):
+        a = eval_expr(expr.arg, chunk)
+        v = I128.pack(*I128.neg(*I128.unpack(a.values))) if _is_i128(a) \
+            else -a.values
+        return DCol(a.dtype, PLAIN, v, validity=a.validity)
 
     if isinstance(expr, ir.Arith):
         return _arith(expr, chunk)
@@ -153,12 +160,112 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
 
     if isinstance(expr, ir.Substring):
         col = eval_expr(expr.arg, chunk)
+        if col.kind == DICT:
+            a = expr.start - 1
+            b = None if expr.size is None else a + expr.size
+            return _string_transform(col, lambda s: s[a:b], expr.dtype)
         if col.kind != BYTES:
             raise NotImplementedError(f"substring of a {col.kind} column")
         v, lens = S.substring(col.values, col.lengths, expr.start, expr.size)
         return DCol(expr.dtype, BYTES, v, lens, col.validity)
 
+    if isinstance(expr, ir.IsNull):
+        col = eval_expr(expr.arg, chunk)
+        if col.validity is None:
+            isnull = torch.zeros((n,), dtype=torch.bool, device=dev)
+        else:
+            isnull = ~col.validity
+        return DCol(T.BOOLEAN, PLAIN, ~isnull if expr.negated else isnull)
+
+    if isinstance(expr, ir.Func):
+        return _eval_func(expr, chunk)
+
     raise NotImplementedError(type(expr).__name__)
+
+
+def _literal(expr: ir.Literal, n: int, dev) -> DCol:
+    """A literal broadcast to ``n`` rows: a string as a BYTES column, a
+    NULL of any type as a column of its type's layout with no valid row
+    (a long decimal's is ``[n, 2]``)."""
+    t, v = expr.dtype, expr.value
+    if T.is_timestamp_tz(t) or not isinstance(
+            v, (type(None), str, bool, int, float)):
+        raise NotImplementedError(f"{t} literal {v!r}")
+    if v is None:
+        never = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if T.is_string(t):
+            return DCol(t, BYTES, torch.zeros((n, 1), dtype=torch.uint8,
+                                              device=dev),
+                        torch.zeros((n,), dtype=torch.int32, device=dev),
+                        never)
+        shape = (n, 2) if T.is_long_decimal(t) else (n,)
+        dtype = (torch.bool if isinstance(t, T.BooleanType) else
+                 torch.float64 if isinstance(t, T.DoubleType) else
+                 torch.int64)
+        return DCol(t, PLAIN, torch.zeros(shape, dtype=dtype, device=dev),
+                    validity=never)
+    if T.is_string(t):
+        b = v.encode("ascii")
+        row = torch.tensor(list(b.ljust(max(len(b), 1), b"\0")),
+                           dtype=torch.uint8, device=dev)
+        return DCol(t, BYTES, row.expand(n, row.shape[0]),
+                    torch.full((n,), len(b), dtype=torch.int32, device=dev))
+    if isinstance(t, T.BooleanType):
+        return DCol(t, PLAIN, torch.full((n,), bool(v), dtype=torch.bool,
+                                         device=dev))
+    if isinstance(t, T.DoubleType):
+        return DCol(t, PLAIN, torch.full((n,), float(v), dtype=torch.float64,
+                                         device=dev))
+    v = int(v)
+    if not -2**63 <= v < 2**63:  # long-decimal literal: (hi, lo) words
+        lo = v % (1 << 64)
+        words = torch.tensor([v >> 64, lo - (1 << 64) if lo >= 1 << 63
+                              else lo], dtype=torch.int64, device=dev)
+        return DCol(t if T.is_long_decimal(t) else T.decimal(38, 0), PLAIN,
+                    words.expand(n, 2))
+    return DCol(t, PLAIN, torch.full((n,), v, dtype=torch.int64, device=dev))
+
+
+def _string_transform(col: DCol, f, out_dtype) -> DCol:
+    """A host string function over a DICT column's dictionary, the codes
+    kept; where ``f`` maps two entries to one string the dictionary is
+    re-uniqued and the codes remapped, since GROUP BY and joins compare
+    codes."""
+    mapped = np.array([f(str(s)) for s in col.dictionary.strings],
+                      dtype=object)
+    uniq, remap = np.unique(mapped.astype(str), return_inverse=True)
+    if len(uniq) == len(mapped):
+        return DCol(out_dtype, DICT, col.values, validity=col.validity,
+                    dictionary=Dictionary(mapped))
+    codes = torch.from_numpy(remap.astype(np.int32)).to(col.values.device)[
+        col.values.to(torch.int64)]
+    return DCol(out_dtype, DICT, codes, validity=col.validity,
+                dictionary=Dictionary(uniq.astype(object)))
+
+
+def dcol_to_bytes(c: DCol) -> DCol:
+    """A DICT column decoded into a BYTES column (the dictionary's strings
+    as a host-built byte matrix, gathered by code)."""
+    if c.kind == BYTES:
+        return c
+    if c.kind != DICT:
+        raise NotImplementedError(f"{c.kind} {c.dtype} as a string column")
+    strs = [str(s).encode("ascii") for s in c.dictionary.strings]
+    w = max([len(b) for b in strs] + [1])
+    mat = np.zeros((max(len(strs), 1), w), np.uint8)
+    lens = np.zeros(max(len(strs), 1), np.int32)
+    for i, b in enumerate(strs):
+        mat[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    dev = c.values.device
+    codes = c.values.to(torch.int64)
+    return DCol(c.dtype, BYTES, torch.from_numpy(mat).to(dev)[codes],
+                torch.from_numpy(lens).to(dev)[codes], c.validity)
+
+
+def _pad_bytes(v: torch.Tensor, w: int) -> torch.Tensor:
+    return torch.nn.functional.pad(v, (0, w - v.shape[1])) \
+        if v.shape[1] < w else v
 
 
 def _in_list(expr: ir.InList, chunk: Chunk) -> DCol:
@@ -184,22 +291,41 @@ def _in_list(expr: ir.InList, chunk: Chunk) -> DCol:
     return DCol(T.BOOLEAN, PLAIN, m, validity=col.validity)
 
 
-def year_from_days(days: torch.Tensor) -> torch.Tensor:
-    """Civil year of days since 1970-01-01 (Hinnant's civil_from_days);
-    every division floors, so days before the epoch are right too."""
-    def fdiv(a, b):
-        return torch.div(a, b, rounding_mode="floor")
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
 
+
+def civil_from_days(days: torch.Tensor):
+    """(year, month, day) of days since 1970-01-01 (Hinnant's
+    civil_from_days); every division floors, so days before the epoch
+    are right too."""
     z = days.to(torch.int64) + 719468
-    era = fdiv(z, 146097)
+    era = _fdiv(z, 146097)
     doe = z - era * 146097
-    yoe = fdiv(doe - fdiv(doe, 1460) + fdiv(doe, 36524) - fdiv(doe, 146096),
-               365)
-    doy = doe - (365 * yoe + fdiv(yoe, 4) - fdiv(yoe, 100))
-    mp = fdiv(5 * doy + 2, 153)  # month index from March
-    # January and February (mp 10, 11) close the civil year that began
-    # the March before
-    return yoe + era * 400 + (mp >= 10).to(torch.int64)
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)  # month index from March
+    day = doy - _fdiv(153 * mp + 2, 5) + 1
+    month = torch.where(mp < 10, mp + 3, mp - 9)
+    # January and February close the civil year that began the March before
+    return yoe + era * 400 + (month <= 2).to(torch.int64), month, day
+
+
+def days_from_civil(y, m, d) -> torch.Tensor:
+    """Days since 1970-01-01 of (year, month, day) (Hinnant's inverse)."""
+    y = y - (m <= 2).to(torch.int64)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def year_from_days(days: torch.Tensor) -> torch.Tensor:
+    """Civil year of days since 1970-01-01."""
+    return civil_from_days(days)[0]
 
 
 def _to_days(col: DCol) -> torch.Tensor:
@@ -212,11 +338,152 @@ def _to_days(col: DCol) -> torch.Tensor:
     return v
 
 
-def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
-    """Searched CASE over integer and decimal branches (long-decimal results
-    promote every branch to (hi, lo) words)."""
+def _eval_func(expr: ir.Func, chunk: Chunk) -> DCol:
+    """Scalar functions (reference: ``operator/scalar/``): ``abs``,
+    ``round``, ``coalesce``, ``upper``, ``concat`` and ``date_add``; any
+    other raises ``NotImplementedError`` with its name."""
+    name = expr.name
+    if name not in _FUNCS:
+        raise NotImplementedError(f"scalar function {name}")
+    return _FUNCS[name](expr, [eval_expr(a, chunk) for a in expr.args])
+
+
+def _abs(expr, args) -> DCol:
+    (a,) = args
+    v = I128.pack(*I128.abs128(*I128.unpack(a.values))) if _is_i128(a) \
+        else a.values.abs()
+    return DCol(a.dtype, PLAIN, v, validity=a.validity)
+
+
+def _round(expr, args) -> DCol:
+    """round(x[, d]) to ``d`` places, typed decimal(38, d) by the planner.
+    A DOUBLE rounds its scaled value half away from zero, as Trino's
+    ``MathFunctions.round`` does (the JAX package rounds half to even); a
+    decimal rescales HALF_UP."""
+    (a,) = args
+    ts = _scale_of(expr.dtype)
+    if isinstance(a.dtype, T.DoubleType):
+        x = a.values * float(10 ** ts)
+        v = (torch.sign(x) * torch.floor(x.abs() + 0.5)).to(torch.int64)
+    elif _is_i128(a):
+        v = I128.pack(*I128.rescale(*I128.unpack(a.values),
+                                    _scale_of(a.dtype), ts))
+    else:
+        v = D.rescale(a.values.to(torch.int64), _scale_of(a.dtype), ts)
+    return DCol(expr.dtype, PLAIN, v, validity=a.validity)
+
+
+def _coalesce(expr, args) -> DCol:
+    """The first non-NULL argument of each row.  String arguments go to
+    BYTES, padded to the widest; decimals rescale to the result's scale,
+    and one long-decimal argument widens every one to (hi, lo) words."""
     rt = expr.dtype
-    if not (T.is_decimal(rt) or T.is_integral(rt)):
+    if T.is_string(rt):
+        cols = [dcol_to_bytes(a) for a in args]
+        w = max(c.values.shape[1] for c in cols)
+        vals, lens = _pad_bytes(cols[-1].values, w), cols[-1].lengths
+        for c in reversed(cols[:-1]):
+            ok = c.valid_or_true()
+            vals = torch.where(ok[:, None], _pad_bytes(c.values, w), vals)
+            lens = torch.where(ok, c.lengths, lens)
+        valid = _or_validity([c.validity for c in cols])
+        return DCol(rt, BYTES, vals, lens, valid)
+    if isinstance(rt, T.DoubleType):
+        vals = [as_double(a) for a in args]
+    else:
+        cols = [_rescale_col(a, _scale_of(rt)) if T.is_decimal(rt) else a
+                for a in args]
+        if any(_is_i128(c) for c in cols):
+            vals = [I128.pack(*_col_i128(c)) for c in cols]
+        else:
+            vals = [c.values for c in cols]
+    out = vals[-1]
+    for a, v in zip(reversed(args[:-1]), reversed(vals[:-1])):
+        ok = a.valid_or_true()
+        out = torch.where(ok[:, None] if v.dim() == 2 else ok, v, out)
+    return DCol(rt, PLAIN, out,
+                validity=_or_validity([a.validity for a in args]))
+
+
+def _or_validity(vs) -> Optional[torch.Tensor]:
+    """Valid where any is (None = every row valid)."""
+    if any(v is None for v in vs):
+        return None
+    out = vs[0]
+    for v in vs[1:]:
+        out = out | v
+    return out
+
+
+def _upper(expr, args) -> DCol:
+    (a,) = args
+    if a.kind == DICT:
+        return _string_transform(a, str.upper, a.dtype)
+    if a.kind != BYTES:
+        raise NotImplementedError(f"upper of a {a.kind} column")
+    v = a.values
+    lower = (v >= ord("a")) & (v <= ord("z"))
+    return DCol(a.dtype, BYTES, torch.where(lower, v - 32, v), a.lengths,
+                a.validity)
+
+
+def _concat(expr, args) -> DCol:
+    """String concatenation as a byte matrix: byte k of a row is byte k of
+    the first string below its length, else byte k - len of the second."""
+    out = dcol_to_bytes(args[0])
+    for b in map(dcol_to_bytes, args[1:]):
+        wa, wb = out.values.shape[1], b.values.shape[1]
+        la = out.lengths.to(torch.int64)[:, None]
+        k = torch.arange(wa + wb, device=la.device)[None, :]
+        j = k - la
+        from_b = torch.gather(b.values, 1, j.clamp(0, wb - 1))
+        in_b = (j >= 0) & (j < b.lengths.to(torch.int64)[:, None])
+        vals = torch.where(k < la, _pad_bytes(out.values, wa + wb),
+                           torch.where(in_b, from_b, 0))
+        out = DCol(expr.dtype, BYTES, vals.to(torch.uint8),
+                   out.lengths + b.lengths,
+                   _and_validity(out.validity, b.validity))
+    return out
+
+
+def _date_add(expr, args) -> DCol:
+    """date_add(unit, k, date) for day, week, month and year; a month or
+    year step clamps the day to the target month's length."""
+    unit = expr.args[0].value.lower() if isinstance(
+        expr.args[0], ir.Literal) else None
+    k, a = args[1].values.to(torch.int64), args[2]
+    days = _to_days(a)
+    if unit in ("day", "week"):
+        v = days + (7 * k if unit == "week" else k)
+    elif unit in ("month", "year"):
+        y, m, d = civil_from_days(days)
+        months = y * 12 + (m - 1) + (k if unit == "month" else 12 * k)
+        ny, nm = _fdiv(months, 12), months % 12 + 1
+        one = torch.ones_like(ny)
+        month_len = days_from_civil(torch.where(nm == 12, ny + 1, ny),
+                                    torch.where(nm == 12, 1, nm + 1), one) \
+            - days_from_civil(ny, nm, one)
+        v = days_from_civil(ny, nm, torch.minimum(d, month_len))
+    else:
+        raise NotImplementedError(f"date_add unit {unit}")
+    return DCol(T.DATE, PLAIN, v.to(torch.int32),
+                validity=_and_validity(args[1].validity, a.validity))
+
+
+_FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
+          "upper": _upper, "concat": _concat, "date_add": _date_add}
+
+
+def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
+    """Searched CASE over integer, decimal and DOUBLE branches
+    (long-decimal results promote every branch to (hi, lo) words; DOUBLE
+    results take each branch as float64, decimals divided by their
+    scale)."""
+    rt = expr.dtype
+    dbl = isinstance(rt, T.DoubleType)
+    if T.is_string(rt):
+        return _eval_case_strings(expr, chunk)
+    if not (T.is_decimal(rt) or T.is_integral(rt) or dbl):
         raise NotImplementedError(f"CASE returning {rt}")
     n = chunk.n_rows
     out = None
@@ -226,10 +493,13 @@ def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
     i128 = T.is_long_decimal(rt)
 
     def branch_vals(v: DCol):
-        return I128.pack(*_col_i128(v, rs)) if i128 else v.values
+        if i128:
+            return I128.pack(*_col_i128(v, rs))
+        return as_double(v) if dbl else v.values
 
     def branch(e):
-        return _rescale_col(eval_expr(e, chunk), rs)
+        v = eval_expr(e, chunk)
+        return v if dbl else _rescale_col(v, rs)
 
     for cond, val in expr.whens:
         c = eval_expr(cond, chunk)
@@ -255,6 +525,27 @@ def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
     return DCol(rt, PLAIN, out, validity=valid)
 
 
+def _eval_case_strings(expr: ir.Case, chunk: Chunk) -> DCol:
+    """Searched CASE with a string result: every branch as BYTES, padded
+    to the widest, chosen row by row."""
+    n = chunk.n_rows
+    dev = chunk.mask.device
+    branches = [(eval_predicate(c, chunk), dcol_to_bytes(eval_expr(v, chunk)))
+                for c, v in expr.whens]
+    default = (dcol_to_bytes(eval_expr(expr.default, chunk))
+               if expr.default is not None else
+               _literal(ir.Literal(None, expr.dtype), n, dev))
+    w = max(b.values.shape[1] for _, b in branches + [(None, default)])
+    vals = _pad_bytes(default.values, w)
+    lens = default.lengths
+    valid = default.valid_or_true()
+    for cm, b in reversed(branches):  # the first true WHEN wins
+        vals = torch.where(cm[:, None], _pad_bytes(b.values, w), vals)
+        lens = torch.where(cm, b.lengths, lens)
+        valid = torch.where(cm, b.valid_or_true(), valid)
+    return DCol(expr.dtype, BYTES, vals, lens, valid)
+
+
 def _host_like(s: str, pattern: str) -> bool:
     """SQL LIKE of one string: '%' matches any run of characters, '_'
     exactly one (Trino's semantics; the JAX package's dictionary LIKE
@@ -265,12 +556,30 @@ def _host_like(s: str, pattern: str) -> bool:
     return re.fullmatch(rx, s, re.S) is not None
 
 
+def as_double(col: DCol) -> torch.Tensor:
+    """A numeric column's float64 values: decimals divide out their scale,
+    long decimals fold their (hi, lo) words first."""
+    if _is_i128(col):
+        v = I128.to_f64(*I128.unpack(col.values))
+    else:
+        v = col.values.to(torch.float64)
+    s = _scale_of(col.dtype)
+    return v / float(10 ** s) if s else v
+
+
 def _cast(col: DCol, to: T.DataType) -> DCol:
-    """Casts between integer and decimal types (rescaled HALF_UP)."""
+    """Casts between integer, decimal and DOUBLE types (decimal rescales
+    HALF_UP) and between string types (the layout kept)."""
     if col.dtype == to:
         return col
-    if col.kind != PLAIN or not (T.is_decimal(to) or T.is_integral(to)) \
-            or not (T.is_decimal(col.dtype) or T.is_integral(col.dtype)):
+    if T.is_string(to) and T.is_string(col.dtype):
+        return DCol(to, col.kind, col.values, col.lengths, col.validity,
+                    col.dictionary)
+    numeric = (T.is_decimal(col.dtype) or T.is_integral(col.dtype)) \
+        and col.kind == PLAIN
+    if numeric and isinstance(to, T.DoubleType):
+        return DCol(to, PLAIN, as_double(col), validity=col.validity)
+    if not numeric or not (T.is_decimal(to) or T.is_integral(to)):
         raise NotImplementedError(f"cast {col.dtype} -> {to}")
     fs, ts = _scale_of(col.dtype), _scale_of(to)
     if _is_i128(col) or T.is_long_decimal(to):
@@ -295,6 +604,9 @@ def _rescale_col(col: DCol, to_scale: int) -> DCol:
                 validity=col.validity)
 
 
+_FLOAT_OPS = {"+": torch.add, "-": torch.sub, "*": torch.mul}
+
+
 def _arith(expr: ir.Arith, chunk: Chunk) -> DCol:
     lt, rt = expr.left.dtype, expr.right.dtype
     l = eval_expr(expr.left, chunk)
@@ -302,7 +614,17 @@ def _arith(expr: ir.Arith, chunk: Chunk) -> DCol:
     valid = _and_validity(l.validity, r.validity)
     rs = _scale_of(expr.dtype)
     if any(isinstance(x, T.DoubleType) for x in (expr.dtype, lt, rt)):
-        raise NotImplementedError("DOUBLE arithmetic on the torch path")
+        # DOUBLE arithmetic in float64 (the decimal path would drop the
+        # fraction); x / 0 is NULL, as in the JAX package
+        lv, rv = as_double(l), as_double(r)
+        if expr.op == "/":
+            out = lv / torch.where(rv != 0, rv, 1.0)
+            valid = _and_validity(valid, rv != 0)
+        elif expr.op in _FLOAT_OPS:
+            out = _FLOAT_OPS[expr.op](lv, rv)
+        else:
+            raise ValueError(expr.op)
+        return DCol(T.DOUBLE, PLAIN, out, validity=valid)
     if _is_i128(l) or _is_i128(r) or T.is_long_decimal(expr.dtype):
         # DECIMAL(p>18) results are real int128 values (a short×short
         # product typed long would silently wrap in int64)
@@ -353,28 +675,67 @@ def _arith_i128(expr: ir.Arith, l: DCol, r: DCol, valid, rs: int) -> DCol:
     return DCol(expr.dtype, PLAIN, out[1], validity=valid)  # fits int64
 
 
+_FLIP = {"=": "=", "<>": "<>", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
+
+
 def _compare(expr: ir.Compare, chunk: Chunk) -> DCol:
-    l = eval_expr(expr.left, chunk)
-    if l.kind == DICT and isinstance(expr.right, ir.Literal) \
-            and isinstance(expr.right.value, str):
-        lit, op = expr.right.value, expr.op
+    left, right, op = expr.left, expr.right, expr.op
+    if isinstance(left, ir.Literal) and isinstance(left.value, str):
+        left, right, op = right, left, _FLIP[op]
+    l = eval_expr(left, chunk)
+    if l.kind == DICT and isinstance(right, ir.Literal) \
+            and isinstance(right.value, str):
+        lit = right.value
         m = _dict_predicate(l, lambda s: _cmp_str(op, s, lit))
         return DCol(T.BOOLEAN, PLAIN, m, validity=l.validity)
-    r = eval_expr(expr.right, chunk)
-    if l.kind != PLAIN or r.kind != PLAIN or any(
-            isinstance(c.dtype, T.DoubleType) for c in (l, r)):
-        raise NotImplementedError(
-            f"compare {l.kind} {l.dtype} with {r.kind} {r.dtype}")
+    r = eval_expr(right, chunk)
     valid = _and_validity(l.validity, r.validity)
+    if l.kind != PLAIN or r.kind != PLAIN:
+        return DCol(T.BOOLEAN, PLAIN, _compare_strings(op, l, r),
+                    validity=valid)
+    if any(isinstance(c.dtype, T.DoubleType) for c in (l, r)):
+        # DOUBLE against an integer or decimal: compared in float64
+        return DCol(T.BOOLEAN, PLAIN, _int_cmp(op, as_double(l),
+                                               as_double(r)), validity=valid)
     # integer/date/decimal: align scales
     ls, rs = _scale_of(l.dtype), _scale_of(r.dtype)
     s = max(ls, rs)
     if _is_i128(l) or _is_i128(r):
-        m = I128.cmp(expr.op, *_col_i128(l, s), *_col_i128(r, s))
+        m = I128.cmp(op, *_col_i128(l, s), *_col_i128(r, s))
         return DCol(T.BOOLEAN, PLAIN, m, validity=valid)
     lv = D.rescale(l.values.to(torch.int64), ls, s)
     rv = D.rescale(r.values.to(torch.int64), rs, s)
-    return DCol(T.BOOLEAN, PLAIN, _int_cmp(expr.op, lv, rv), validity=valid)
+    return DCol(T.BOOLEAN, PLAIN, _int_cmp(op, lv, rv), validity=valid)
+
+
+def _compare_strings(op: str, l: DCol, r: DCol) -> torch.Tensor:
+    """A string column against a string column, by value.  Two DICT
+    columns compare the ranks of their codes in the sorted union of both
+    dictionaries (host-built tables, the dictionaries being small), so
+    two dictionaries in different orders still match by string; any
+    other pair is decoded to BYTES and compared with ``=`` / ``<>``
+    (the JAX package compares codes of different dictionaries, and
+    refuses ordered byte compares)."""
+    if l.kind == DICT and r.kind == DICT:
+        union = np.unique(np.concatenate([
+            np.asarray(l.dictionary.strings, dtype=str),
+            np.asarray(r.dictionary.strings, dtype=str)]))
+        return _int_cmp(op, _rank_in(union, l), _rank_in(union, r))
+    if op not in ("=", "<>"):
+        raise NotImplementedError(f"ordered compare {l.kind} {op} {r.kind}")
+    a, b = dcol_to_bytes(l), dcol_to_bytes(r)
+    w = max(a.values.shape[1], b.values.shape[1])
+    eq = (_pad_bytes(a.values, w) == _pad_bytes(b.values, w)).all(1) \
+        & (a.lengths == b.lengths)
+    return eq if op == "=" else ~eq
+
+
+def _rank_in(union: np.ndarray, c: DCol) -> torch.Tensor:
+    """Each DICT code's string as its position in the sorted ``union``."""
+    table = np.searchsorted(union, np.asarray(c.dictionary.strings,
+                                              dtype=str))
+    return torch.from_numpy(table.astype(np.int64)).to(c.values.device)[
+        c.values.to(torch.int64)]
 
 
 def _int_cmp(op: str, a, b):

@@ -9,7 +9,7 @@ scalar from the device — each such read is counted in
 ``ExecContext.host_syncs``.
 
 Operators ↔ reference:
-- PhysScan            ← TableScanOperator + TPC-H connector page source
+- PhysScan            ← TableScanOperator + TPC-H / TPC-DS page source
 - PhysFilter/Project  ← FilterAndProjectOperator
 - PhysHashAggregate   ← HashAggregationOperator
 - PhysHashJoin        ← HashBuilderOperator + LookupJoinOperator: unique
@@ -18,15 +18,19 @@ Operators ↔ reference:
 - PhysSort/Limit      ← OrderByOperator / Limit
 - PhysScalarBind      ← uncorrelated scalar subquery (EnforceSingleRow +
                         join): one host read per binding
+- PhysConcat          ← UNION ALL (the union's LocalExchange): layouts
+                        harmonised column by column
 
-Aggregates: count, sum, decimal avg, min/max of integers, dates and
-decimals, arbitrary, and count(DISTINCT x) through a second dedup pass
-over (group, value) pairs.
+Aggregates: count, sum, avg (a DOUBLE for integer and DOUBLE inputs),
+the variance family (the JAX package's one-pass formula), min/max of
+integers, dates, decimals and DOUBLEs, arbitrary, and count(DISTINCT x)
+through a second dedup pass over (group, value) pairs.  A DOUBLE key
+(group, join, sort) is its order-preserving int64 image.
 
-Not ported yet (they raise ``NotImplementedError``): windows,
-MATCH_RECOGNIZE, UNION, UNNEST, GROUPING SETS, DISTINCT on any aggregate
-but count, avg of a non-decimal (a DOUBLE result), nested-value
-aggregates, and the partition-at-a-time memory tiers.
+Not ported yet (they raise ``NotImplementedError`` naming the operator or
+aggregate): windows (PhysWindow), GROUPING SETS (PhysGroupId),
+MATCH_RECOGNIZE, UNNEST, DISTINCT on any aggregate but count,
+nested-value aggregates, and the partition-at-a-time memory tiers.
 """
 
 from __future__ import annotations
@@ -44,10 +48,11 @@ from ..ops import hashtable as HT
 from ..ops import int128 as I128
 from ..ops import sort as SORT
 from .columns import Chunk, DCol
-from .expreval import eval_expr, eval_predicate
-from .plan import (AggSpec, PhysFilter, PhysHashAggregate, PhysHashJoin,
-                   PhysLimit, PhysOp, PhysProject, PhysScalarBind, PhysScan,
-                   PhysSort, _agg_output_type)
+from .expreval import as_double, dcol_to_bytes, eval_expr, eval_predicate
+from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
+                   PhysHashAggregate, PhysHashJoin, PhysLimit, PhysOp,
+                   PhysProject, PhysScalarBind, PhysScan, PhysSort,
+                   _agg_output_type)
 
 SEG_DIRECT_CAP = 512  # largest key domain grouped by its composite code
 COMPACT_THRESHOLD = 0.25  # compact a chunk when selectivity falls below
@@ -88,6 +93,8 @@ def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
         return _exec_limit(execute(plan.child, ctx), plan.n)
     if isinstance(plan, PhysScalarBind):
         return _exec_scalar_bind(plan, ctx)
+    if isinstance(plan, PhysConcat):
+        return concat_chunks([execute(c, ctx) for c in plan.inputs])
     raise NotImplementedError(f"{type(plan).__name__} on the torch path")
 
 
@@ -138,30 +145,34 @@ def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
             raise ValueError(f"scalar subquery {name} returns "
                              f"{len(sc.cols)} columns, not one")
         (c,) = sc.cols.values()
-        if c.kind != PLAIN or c.values.is_floating_point():
+        if c.kind != PLAIN:
             raise NotImplementedError(
                 f"scalar subquery of a {c.kind} {c.dtype} column")
         width = 2 if c.values.dim() == 2 else 1
         shape = (n, 2) if width == 2 else (n,)
+        dtype = c.values.dtype if c.values.is_floating_point() \
+            else torch.int64
         if sc.n_rows:
             first = sc.mask.to(torch.uint8).argmax().reshape(1)
             row = c.take(first)
             ctx.host_syncs += 1
+            # a DOUBLE travels as its bits in the int64 word
+            bits = row.values.reshape(-1).to(dtype).view(torch.int64)
             word = torch.cat([sc.mask.sum().reshape(1),
                               row.valid_or_true().to(torch.int64),
-                              row.values.reshape(-1).to(torch.int64)]
-                             ).tolist()
+                              bits]).tolist()
         else:
             word = [0]
         if word[0] > 1:
             raise ValueError(f"scalar subquery {name} returned {word[0]} "
                              "rows: it must return at most one")
         if word[0] == 0 or not word[1]:
-            vals = torch.zeros(shape, dtype=torch.int64, device=dev)
+            vals = torch.zeros(shape, dtype=dtype, device=dev)
             valid = torch.zeros((n,), dtype=torch.bool, device=dev)
         else:
             vals = torch.tensor(word[2:], dtype=torch.int64,
-                                device=dev).expand(n, width).reshape(shape)
+                                device=dev).view(dtype).expand(
+                                    n, width).reshape(shape)
             valid = None
         cols[name] = DCol(c.dtype, PLAIN, vals.contiguous(), validity=valid)
     return Chunk(cols, child.mask)
@@ -171,11 +182,14 @@ def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
 
 def _col_keys(c: DCol) -> List[torch.Tensor]:
     """One column's int64 key tensors: the big-endian packs of a BYTES
-    column, both words of a long decimal, else its values."""
+    column, both words of a long decimal, the order-preserving bits of a
+    DOUBLE, else its values."""
     if c.kind == BYTES:
         return SORT.bytes_sort_keys(c.values, c.lengths)
     if c.values.dim() == 2:
         return [w.contiguous() for w in I128.unpack(c.values)]
+    if c.values.is_floating_point():
+        return [SORT.f64_sort_key(c.values)]
     return [c.values.to(torch.int64)]
 
 
@@ -267,10 +281,10 @@ def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
                 [str(s) for s in c.dictionary.strings], kind="stable"))
             packs = [torch.from_numpy(rank).to(c.values.device)[
                 c.values.to(torch.int64)]]
-        elif not c.values.is_floating_point():
-            packs = [c.values]
+        elif c.values.is_floating_point():
+            packs = [SORT.f64_sort_key(c.values)]
         else:
-            raise NotImplementedError(f"ORDER BY a {c.kind} {c.dtype} column")
+            packs = [c.values]
         for p in packs:
             if c.validity is not None:
                 p = torch.where(c.validity, p.to(torch.int64), SORT.I64_MAX)
@@ -338,6 +352,17 @@ def _agg_distinct(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid,
                 validity=gvalid)
 
 
+def _variance(func: str, s1, s2, cnt):
+    """The JAX package's one-pass variance from the sum ``s1``, the sum of
+    squares ``s2`` and the count (it cancels when the mean is large
+    against the spread; Welford's update would not), its square root for
+    the stddev family."""
+    cntf = cnt.to(torch.float64)
+    den = (cntf if func.endswith("_pop") else cntf - 1).clamp_min(1.0)
+    var = ((s2 - s1 * s1 / cntf.clamp_min(1.0)) / den).clamp_min(0.0)
+    return var if "var" in func else torch.sqrt(var)
+
+
 def _seg_sum128(vals, slot, vmask, capacity):
     """Exact int128 segment sum of int64 or packed-int128 addends."""
     if vals.dim() == 2:
@@ -363,22 +388,37 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
     if spec.func == "count":
         return DCol(T.BIGINT, PLAIN, A.seg_count(slot, vmask, capacity),
                     validity=gvalid)
-    if spec.func == "sum" and (T.is_long_decimal(ot) or ot == T.BIGINT):
+    dbl = isinstance(c.dtype, T.DoubleType)
+    if spec.func == "sum" and (T.is_long_decimal(ot) or ot == T.BIGINT
+                               or dbl):
         nonempty = A.seg_count(slot, vmask, capacity) > 0
         if T.is_long_decimal(ot):
             # DECIMAL sums accumulate in int128 like the reference
             # (LongDecimalWithOverflowState)
             v = I128.pack(*_seg_sum128(vals, slot, vmask, capacity))
         else:
-            v = A.seg_sum(vals, slot, vmask, capacity, torch.int64)
+            v = A.seg_sum(vals, slot, vmask, capacity,
+                          torch.float64 if dbl else torch.int64)
         return DCol(ot, PLAIN, v, validity=gvalid & nonempty)
-    if spec.func == "avg" and T.is_decimal(c.dtype):
+    if spec.func == "avg" and c.kind == PLAIN and vals.dtype != torch.bool:
         cnt = A.seg_count(slot, vmask, capacity)
-        hi, lo = _seg_sum128(vals, slot, vmask, capacity)
-        qhi, qlo = I128.div_round_half_up(
-            hi, lo, *I128.from_i64(cnt.clamp_min(1)))
-        v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
+        if T.is_decimal(c.dtype):
+            hi, lo = _seg_sum128(vals, slot, vmask, capacity)
+            qhi, qlo = I128.div_round_half_up(
+                hi, lo, *I128.from_i64(cnt.clamp_min(1)))
+            v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
+        else:  # a DOUBLE: the float64 or exact int64 sum over the count
+            s = A.seg_sum(vals, slot, vmask, capacity,
+                          torch.float64 if dbl else torch.int64)
+            v = s.to(torch.float64) / cnt.clamp_min(1)
         return DCol(ot, PLAIN, v, validity=gvalid & (cnt > 0))
+    if spec.func in VARIANCE_FUNCS and c.kind == PLAIN:
+        fv = as_double(c)
+        cnt = A.seg_count(slot, vmask, capacity)
+        v = _variance(spec.func, A.seg_sum(fv, slot, vmask, capacity),
+                      A.seg_sum(fv * fv, slot, vmask, capacity), cnt)
+        return DCol(T.DOUBLE, PLAIN, v, validity=gvalid & (
+            cnt >= (1 if spec.func.endswith("_pop") else 2)))
     if spec.func in ("arbitrary", "any_value"):
         # lowest row id of each group, gathered whole: one code path for
         # every layout (DICT codes, BYTES matrix + lengths, long decimals)
@@ -388,7 +428,7 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         nonempty = A.seg_count(slot, vmask, capacity) > 0
         return c.take(widx.clamp(max=max(n - 1, 0)), valid=gvalid & nonempty)
     if spec.func in ("min", "max") and c.kind == PLAIN \
-            and not vals.is_floating_point() and vals.dtype != torch.bool:
+            and vals.dtype != torch.bool:
         valid = gvalid & (A.seg_count(slot, vmask, capacity) > 0)
         if vals.dim() == 2:
             f = I128.seg_min128 if spec.func == "min" else I128.seg_max128
@@ -420,23 +460,32 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         if spec.func == "count":
             out[spec.name] = DCol(T.BIGINT, PLAIN, A.g_count(m).reshape(1))
             continue
-        if c.kind != PLAIN or c.values.is_floating_point() \
-                or c.values.dtype == torch.bool \
-                or (spec.func == "avg" and not T.is_decimal(c.dtype)):
-            # an integer average is a DOUBLE, which is not ported
+        if c.kind != PLAIN or c.values.dtype == torch.bool:
             raise NotImplementedError(
                 f"global {spec.func}({c.dtype}, {c.kind}) on the torch path")
+        dbl = isinstance(c.dtype, T.DoubleType)
         if spec.func == "sum" and T.is_long_decimal(ot):
             v = I128.pack(*_g_sum128(c.values, m)).reshape(1, 2)
-        elif spec.func == "sum" and ot == T.BIGINT:
-            v = A.g_sum(c.values, m, torch.int64).reshape(1)
-        elif spec.func == "avg":
+        elif spec.func == "sum" and (ot == T.BIGINT or dbl):
+            v = A.g_sum(c.values, m,
+                        torch.float64 if dbl else torch.int64).reshape(1)
+        elif spec.func == "avg" and T.is_decimal(c.dtype):
             # the int128 sum over the count, HALF_UP
             cnt = A.g_count(m).clamp_min(1).reshape(1)
             hi, lo = _g_sum128(c.values, m)
             qhi, qlo = I128.div_round_half_up(
                 hi.reshape(1), lo.reshape(1), *I128.from_i64(cnt))
             v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
+        elif spec.func == "avg":  # a DOUBLE
+            s = A.g_sum(c.values, m, torch.float64 if dbl else torch.int64)
+            v = (s.to(torch.float64) / A.g_count(m).clamp_min(1)).reshape(1)
+        elif spec.func in VARIANCE_FUNCS:
+            fv = as_double(c)
+            cnt = A.g_count(m)
+            v = _variance(spec.func, A.g_sum(fv, m), A.g_sum(fv * fv, m),
+                          cnt).reshape(1)
+            nonempty = (cnt >= (1 if spec.func.endswith("_pop")
+                                else 2)).reshape(1)
         elif spec.func in ("min", "max") and c.values.dim() == 2:
             f = I128.g_min128 if spec.func == "min" else I128.g_max128
             v = I128.pack(*f(c.values, m)).reshape(1, 2)
@@ -642,28 +691,40 @@ def _concat_validity(cols: List[DCol]):
 
 
 def concat_chunks(chunks: List[Chunk]) -> Chunk:
-    """Vertical concat of chunks with the same columns and layouts, as a
-    FULL join's two parts have them: PLAIN (long decimals too), DICT over
-    one dictionary, and BYTES, padded to the widest."""
+    """Vertical concat (UNION ALL, a FULL join's two parts), harmonising
+    each column's layouts as the JAX package does: DICT over one
+    dictionary keeps its codes; DICT over different dictionaries, or
+    beside BYTES (a string NULL literal is one), goes to BYTES padded to
+    the widest; int64 beside long-decimal words widens to ``[n, 2]``."""
     out: Dict[str, DCol] = {}
     for name in chunks[0].cols:
         cols = [ch.cols[name] for ch in chunks]
         kinds = {c.kind for c in cols}
-        if len(kinds) > 1 or (kinds == {DICT} and any(
-                c.dictionary is not cols[0].dictionary for c in cols)):
-            raise NotImplementedError(
-                f"concat of {sorted(kinds)} columns over different "
-                "layouts or dictionaries")
-        if kinds == {BYTES}:
+        if kinds == {DICT} and all(c.dictionary is cols[0].dictionary
+                                   for c in cols):
+            out[name] = DCol(cols[0].dtype, DICT,
+                             torch.cat([c.values for c in cols]), None,
+                             _concat_validity(cols), cols[0].dictionary)
+        elif kinds <= {DICT, BYTES}:
+            cols = [dcol_to_bytes(c) for c in cols]
             w = max(c.values.shape[1] for c in cols)
             out[name] = DCol(cols[0].dtype, BYTES, torch.cat([
                 torch.nn.functional.pad(c.values, (0, w - c.values.shape[1]))
                 for c in cols]), torch.cat([c.lengths for c in cols]),
                 _concat_validity(cols))
-            continue
-        out[name] = DCol(cols[0].dtype, cols[0].kind,
-                         torch.cat([c.values for c in cols]), None,
-                         _concat_validity(cols), cols[0].dictionary)
+        elif kinds == {PLAIN}:
+            wide = next((c for c in cols if c.values.dim() == 2), cols[0])
+            if wide.values.dim() == 2:
+                vals = [c.values if c.values.dim() == 2 else
+                        I128.pack(*I128.from_i64(c.values.to(torch.int64)))
+                        for c in cols]
+            else:
+                vals = [c.values for c in cols]
+            out[name] = DCol(wide.dtype, PLAIN, torch.cat(vals), None,
+                             _concat_validity(cols))
+        else:
+            raise NotImplementedError(
+                f"concat of {sorted(kinds)} columns {name!r}")
     return Chunk(out, torch.cat([ch.mask for ch in chunks]))
 
 
@@ -678,7 +739,8 @@ def _dynamic_filter(plan: PhysHashJoin, probe: Chunk, build: Chunk,
     pkc = eval_expr(plan.probe_keys[0], probe)
     bkc = eval_expr(plan.build_keys[0], build)
     if pkc.kind != PLAIN or bkc.kind != PLAIN or pkc.values.dim() != 1 \
-            or bkc.values.dim() != 1:
+            or bkc.values.dim() != 1 or pkc.values.is_floating_point() \
+            or bkc.values.is_floating_point():
         return probe
     bmask = build.mask & bkc.valid_or_true()
     bv = bkc.values.to(torch.int64)

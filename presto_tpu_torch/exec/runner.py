@@ -49,7 +49,9 @@ class LocalRunner:
         from ..sql.planner.planner import Planner
         from ..sql.planner.pruning import prune
         from ..sql.planner.rules import optimize
-        plan = Planner(self.datasource.sf).plan(parse(sql))
+        ds = self.datasource
+        plan = Planner(ds.sf, extra_tables=ds.extra_schemas(),
+                       extra_stats=ds.extra_stats()).plan(parse(sql))
         return prune(optimize(plan), None)
 
     def run_physical(self, plan: PhysOp) -> Table:
@@ -59,9 +61,10 @@ class LocalRunner:
         return table
 
     def run_sql(self, sql: str) -> Table:
-        plan = self._plan_cache.get(sql)
+        key = (sql, self.datasource.catalog.version)
+        plan = self._plan_cache.get(key)
         if plan is None:
-            plan = self._plan_cache[sql] = self.plan_sql(sql)
+            plan = self._plan_cache[key] = self.plan_sql(sql)
         return self.run_physical(plan)
 
 

@@ -82,10 +82,17 @@ def g_count(mask):
 
 
 def g_min(values, mask):
-    """Minimum of integer values where mask (int64; I64_MAX when none)."""
+    """Minimum of values where mask: integers as int64 (I64_MAX when
+    none), floats as float64 (+inf when none)."""
+    if values.is_floating_point():
+        return torch.where(mask, values.to(torch.float64), float("inf")).min()
     return torch.where(mask, values.to(torch.int64), I64_MAX).min()
 
 
 def g_max(values, mask):
-    """Maximum of integer values where mask (int64; I64_MIN when none)."""
+    """Maximum of values where mask: integers as int64 (I64_MIN when
+    none), floats as float64 (-inf when none)."""
+    if values.is_floating_point():
+        return torch.where(mask, values.to(torch.float64),
+                           float("-inf")).max()
     return torch.where(mask, values.to(torch.int64), I64_MIN).max()

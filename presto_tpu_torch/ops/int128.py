@@ -211,6 +211,13 @@ def rescale(hi, lo, from_scale: int, to_scale: int) -> I64Pair:
                              *from_i64(torch.full_like(hi, POW10[k])))
 
 
+def to_f64(hi, lo) -> torch.Tensor:
+    """The nearest float64 of (hi, lo): (hi + [lo < 0]) * 2^64 + signed
+    lo, which keeps both addends small near zero."""
+    hi_adj = hi + (lo < 0).to(torch.int64)
+    return hi_adj.to(torch.float64) * 2.0**64 + lo.to(torch.float64)
+
+
 def sort_keys(hi, lo):
     """Two int64 keys whose (signed, signed) lexicographic order is signed
     int128 order: ``hi`` as it is, ``lo`` with its sign bit flipped

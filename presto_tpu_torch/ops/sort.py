@@ -43,6 +43,15 @@ def bytes_sort_keys(values: torch.Tensor,
     return packs
 
 
+def f64_sort_key(v: torch.Tensor) -> torch.Tensor:
+    """float64 → int64 in the same order: the bits of a value >= 0 as they
+    are, those of a negative value with all but the sign flipped; -0.0
+    first becomes 0.0, so the two are one key."""
+    bits = torch.where(v == 0, 0.0, v).to(torch.float64).contiguous().view(
+        torch.int64)
+    return torch.where(bits < 0, bits ^ I64_MAX, bits)
+
+
 def argsort_multi(keys: Sequence[Tuple[torch.Tensor, bool]],
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stable argsort by multiple (int-normalised) keys.

@@ -283,10 +283,9 @@ def test_q18_lower_threshold_returns_rows(port, ref):
 UNPORTED = {
     "window": "select n_name, rank() over (order by n_regionkey) as r "
               "from nation",
-    "union_all": "select n_name from nation union all "
-                 "select r_name from region",
-    "double_arithmetic": "select cast(n_nationkey as double) * 2 as x "
-                         "from nation",
+    "grouping_sets": "select n_regionkey, count(*) as c from nation "
+                     "group by rollup (n_regionkey)",
+    "scalar_function_sqrt": "select sqrt(n_nationkey) as x from nation",
     "bytes_like_underscore": "select count(*) as c from orders "
                              "where o_comment like '%special_requests%'",
 }
@@ -553,15 +552,18 @@ def test_concat_chunks_equal_jax():
 
 
 def test_concat_chunks_refuses_other_layouts():
-    """DICT columns over two dictionaries, or a DICT beside a BYTES column,
-    never come out of a FULL join's parts: the port refuses them."""
+    """A string column beside a PLAIN one has no common layout: the port
+    refuses it (DICT over two dictionaries, DICT beside BYTES and int64
+    beside long-decimal words are harmonised, as in
+    ``tests/test_torch_tpcds.py``)."""
     from presto_tpu_torch.exec import columns as TC
     from presto_tpu_torch.exec import physical as TP
     d = [np.array(w, dtype=object) for w in (["ant", "bee"], ["yak"])]
     a, b = (_concat_parts(np.random.default_rng(6), [(4, 3)],
                           (None, TC.Dictionary(x)))[0][1] for x in d)
-    with pytest.raises(NotImplementedError, match="dictionaries"):
-        TP.concat_chunks([a, b])
-    mixed = TC.Chunk(dict(b.cols, d=a.cols["b"]), b.mask)
-    with pytest.raises(NotImplementedError, match="dictionaries"):
+    mixed = TC.Chunk(dict(b.cols, d=a.cols["i"]), b.mask)
+    with pytest.raises(NotImplementedError, match="concat of"):
+        TP.concat_chunks([a, mixed])
+    mixed = TC.Chunk(dict(a.cols, b=a.cols["w"]), a.mask)
+    with pytest.raises(NotImplementedError, match="concat of"):
         TP.concat_chunks([a, mixed])

@@ -133,7 +133,7 @@ def test_unported_expression_raises():
     """Outside the slice the port refuses; it does not answer wrongly."""
     r = LocalRunner(scale_factor=SF, device="cpu")
     with pytest.raises(NotImplementedError):
-        r.run_sql("select sum(l_quantity * 1.5e0) as d from lineitem")
+        r.run_sql("select sum(sqrt(l_quantity)) as d from lineitem")
 
 
 def test_runner_counts_host_syncs():
@@ -148,6 +148,12 @@ from presto_tpu_torch.exec.runner import LocalRunner
 from presto_tpu_torch.tpch.queries import QUERIES
 t = LocalRunner(scale_factor=0.01, device="cpu").run_sql(QUERIES[6])
 assert t.row_count == 1
+sys.path.insert(0, "tools")
+import sqlite_tpcds_oracle
+from presto_tpu_torch.tpcds import generator, queries
+r = LocalRunner(scale_factor=0.01, device="cpu")
+generator.attach(r, 0.01)
+assert r.run_sql(queries.QUERIES[96]).row_count == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "presto_tpu"
              or m.startswith("presto_tpu."))
@@ -160,9 +166,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Running Q6 through the port loads no jax and no presto_tpu module,
-    and no port source (nor its chip scripts and their numpy oracle)
-    imports them."""
+    """Running Q6 and TPC-DS q96 through the port loads no jax and no
+    presto_tpu module, and no port source (nor its chip scripts and their
+    numpy and SQLite oracles) imports them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT,
                           env=env, capture_output=True, text=True,
@@ -173,7 +179,8 @@ def test_port_imports_neither_jax_nor_reference():
                os.path.join(ROOT, "tools", "torch_query_profile.py"),
                os.path.join(ROOT, "tools", "sorted_probe_sweep.py"),
                os.path.join(ROOT, "tools", "q14_probe_ab.py"),
-               os.path.join(ROOT, "tools", "np_tpch_oracle.py")]
+               os.path.join(ROOT, "tools", "np_tpch_oracle.py"),
+               os.path.join(ROOT, "tools", "sqlite_tpcds_oracle.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "presto_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     offenders = []

@@ -2,12 +2,13 @@
 """Where one warm query's time goes in presto_tpu_torch, on one CUDA card.
 
     python3 tools/torch_query_profile.py [--sf 1.0] [--runs 3] \
-        [--queries q1,q6,q14,bigint_sum,q2,q3]
+        [--queries q1,q6,q14,bigint_sum,q2,q3] [--tpcds q4,q11]
 
 For the named requests (TPC-H queries and the BIGINT sum; by default the
-22 queries and the sum, as ``chip_smoke.py`` orders them) at the given
-scale factor, after one warm-up run each, prints
-one JSON line per query with:
+22 queries and the sum, as ``chip_smoke.py`` orders them; with
+``--tpcds``, those TPC-DS queries, over the TPC-DS connector at the same
+scale factor, and TPC-H ones only where ``--queries`` names them), after
+one warm-up run each, prints one JSON line per query with:
 
 - ``wall_ms``: host wall time of one warm ``run_sql`` (median of ``runs``),
   fenced with ``torch.cuda.synchronize()``;
@@ -50,12 +51,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--runs", type=int, default=3)
-    ap.add_argument("--queries", default="q1,q6,q14,bigint_sum," + ",".join(
-        f"q{q}" for q in range(2, 23) if q not in (6, 14)))
+    ap.add_argument("--queries", default=None)
+    ap.add_argument("--tpcds", default="")
     args = ap.parse_args()
+    if args.queries is None:
+        args.queries = "" if args.tpcds else "q1,q6,q14,bigint_sum," + \
+            ",".join(f"q{q}" for q in range(2, 23) if q not in (6, 14))
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpcds import generator as DSG
+    from presto_tpu_torch.tpcds.queries import QUERIES as DS_QUERIES
     from presto_tpu_torch.tpch.queries import QUERIES
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -67,7 +73,12 @@ def main() -> int:
     runner = LocalRunner(scale_factor=args.sf)
     requests = {name: BIGINT_SUM if name == "bigint_sum"
                 else QUERIES[int(name[1:])]
-                for name in args.queries.split(",")}
+                for name in filter(None, args.queries.split(","))}
+    if args.tpcds:
+        # TPC-DS tables shadow TPC-H's same-named ones (customer)
+        DSG.attach(runner, args.sf)
+        requests.update({f"tpcds_{name}": DS_QUERIES[int(name[1:])]
+                         for name in args.tpcds.split(",")})
     for name, sql in requests.items():
         runner.run_sql(sql)  # warm-up: generation, ingest, kernel build
         walls = []
