@@ -36,15 +36,16 @@ non-zero without printing a result):
    ``o_comment`` with Q13's pattern, its mask equal to the oracle's
    ``str.find`` match, timed the same two ways;
 7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
-   the 77 TPC-DS queries the port runs (``tpcds.queries.RUNS``) run
-   through ``run_sql`` (one warm-up, then 3 timed runs each; launch counts
-   reset just before and read just after, ``sorted_probe`` required in
+   all 99 TPC-DS queries (``tpcds.queries.RUNS``, windows and GROUPING
+   SETS among them) run through ``run_sql`` (one warm-up, then 3 timed
+   runs each; launch counts reset just before and read just after, its
+   host syncs printed per query, ``sorted_probe`` required in
    every query but ``TPCDS_UNPROBED``); ``sorted_probe`` is measured, in
    a fresh process of this script (``measure_apart``), at the launch of
    those queries with the most probes, and at the one with the most
    probes into a build of 2^16 or more keys; every SF1 result
    (each run) equals the port's own CPU run over the same generated
-   tables, DOUBLE columns to 1e-9 relative; and the 77 queries on the card
+   tables, DOUBLE columns to 1e-9 relative; and the 99 queries on the card
    at SF0.02 equal SQLite under the JAX package's battery rule
    (``tools/sqlite_tpcds_oracle.py``; the SQLite step runs in a thread
    beside the CPU step);

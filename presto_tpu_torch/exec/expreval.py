@@ -475,7 +475,7 @@ _FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
 
 
 def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
-    """Searched CASE over integer, decimal and DOUBLE branches
+    """Searched CASE over integer, date, decimal and DOUBLE branches
     (long-decimal results promote every branch to (hi, lo) words; DOUBLE
     results take each branch as float64, decimals divided by their
     scale)."""
@@ -483,7 +483,8 @@ def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
     dbl = isinstance(rt, T.DoubleType)
     if T.is_string(rt):
         return _eval_case_strings(expr, chunk)
-    if not (T.is_decimal(rt) or T.is_integral(rt) or dbl):
+    if not (T.is_decimal(rt) or T.is_integral(rt) or dbl
+            or isinstance(rt, T.DateType)):
         raise NotImplementedError(f"CASE returning {rt}")
     n = chunk.n_rows
     out = None

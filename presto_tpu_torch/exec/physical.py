@@ -20,16 +20,22 @@ Operators ↔ reference:
                         join): one host read per binding
 - PhysConcat          ← UNION ALL (the union's LocalExchange): layouts
                         harmonised column by column
+- PhysWindow          ← WindowOperator + operator/window/: one sort by
+                        (partition, order) keys, prefix computations
+                        (``ops/window.py``), scattered back to input order
+- PhysGroupId         ← GroupIdOperator: each row once per grouping set
 
 Aggregates: count, sum, avg (a DOUBLE for integer and DOUBLE inputs),
 the variance family (the JAX package's one-pass formula), min/max of
 integers, dates, decimals and DOUBLEs, arbitrary, and count(DISTINCT x)
 through a second dedup pass over (group, value) pairs.  A DOUBLE key
-(group, join, sort) is its order-preserving int64 image.
+(group, join, sort) is its order-preserving int64 image.  A NULL sort key
+(ORDER BY and a window's ORDER BY) sorts after every value in both
+directions, Trino's default (the JAX package puts it first under DESC,
+and its windows order NULLs by whatever value their slots hold).
 
 Not ported yet (they raise ``NotImplementedError`` naming the operator or
-aggregate): windows (PhysWindow), GROUPING SETS (PhysGroupId),
-MATCH_RECOGNIZE, UNNEST, DISTINCT on any aggregate but count,
+aggregate): MATCH_RECOGNIZE, UNNEST, DISTINCT on any aggregate but count,
 nested-value aggregates, and the partition-at-a-time memory tiers.
 """
 
@@ -44,15 +50,17 @@ import torch
 from ..data import types as T
 from ..data.column import PLAIN, DICT, BYTES
 from ..ops import agg as A
+from ..ops import decimal as DEC
 from ..ops import hashtable as HT
 from ..ops import int128 as I128
 from ..ops import sort as SORT
+from ..ops import window as W
 from .columns import Chunk, DCol
 from .expreval import as_double, dcol_to_bytes, eval_expr, eval_predicate
 from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
-                   PhysHashAggregate, PhysHashJoin, PhysLimit, PhysOp,
-                   PhysProject, PhysScalarBind, PhysScan, PhysSort,
-                   _agg_output_type)
+                   PhysGroupId, PhysHashAggregate, PhysHashJoin, PhysLimit,
+                   PhysOp, PhysProject, PhysScalarBind, PhysScan, PhysSort,
+                   PhysWindow, WindowSpec, _agg_output_type, _scale_of)
 
 SEG_DIRECT_CAP = 512  # largest key domain grouped by its composite code
 COMPACT_THRESHOLD = 0.25  # compact a chunk when selectivity falls below
@@ -95,6 +103,11 @@ def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
         return _exec_scalar_bind(plan, ctx)
     if isinstance(plan, PhysConcat):
         return concat_chunks([execute(c, ctx) for c in plan.inputs])
+    if isinstance(plan, PhysWindow):
+        return window(execute(plan.child, ctx), plan)
+    if isinstance(plan, PhysGroupId):
+        return _groupid(execute(plan.child, ctx), plan.keys, plan.sets,
+                        plan.gid_name)
     raise NotImplementedError(f"{type(plan).__name__} on the torch path")
 
 
@@ -265,9 +278,9 @@ def _insert(chunk: Chunk, exprs, capacity: int):
 def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
     """Sort-key exprs → (integer tensor, descending) pairs; a BYTES key
     gives one pair per 8-byte pack, a long decimal two (``sort_keys``).
-    NULL keys sort after every value (Trino: NULLS LAST ascending, NULLS
-    FIRST descending) by replacing every pack of them with +max before the
-    complement."""
+    A nullable key is led by its NULL flag, ascending, and its packs are
+    zeroed where NULL: NULLs sort after every value in both directions
+    and are peers of each other (Trino's default, NULLS LAST)."""
     karrs: List[Tuple[torch.Tensor, bool]] = []
     for e, desc in keys:
         c = eval_expr(e, chunk)
@@ -285,10 +298,10 @@ def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
             packs = [SORT.f64_sort_key(c.values)]
         else:
             packs = [c.values]
-        for p in packs:
-            if c.validity is not None:
-                p = torch.where(c.validity, p.to(torch.int64), SORT.I64_MAX)
-            karrs.append((p, desc))
+        if c.validity is not None:
+            karrs.append(((~c.validity).to(torch.int8), False))
+            packs = [torch.where(c.validity, p, 0) for p in packs]
+        karrs.extend((p, desc) for p in packs)
     return karrs
 
 
@@ -296,6 +309,223 @@ def _sort(chunk: Chunk, keys) -> Chunk:
     perm = SORT.argsort_multi(_sort_key_arrays(chunk, keys), chunk.mask)
     cols = {n: c.take(perm) for n, c in chunk.cols.items()}
     return Chunk(cols, chunk.mask[perm])
+
+
+# ---------------------------------------------------------------- windows
+
+def _unsort(res: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Values at sorted positions → input row order."""
+    out = torch.empty_like(res)
+    out[perm] = res
+    return out
+
+
+def window(chunk: Chunk, plan: PhysWindow) -> Chunk:
+    """Every window function of one (PARTITION BY, ORDER BY) spec: one
+    stable sort by the partition keys (NULLs one partition, as in GROUP
+    BY) and the order keys (as in ORDER BY: NULLs last), the functions over
+    the sorted positions (``ops/window.py``), each result scattered back
+    to input order.  Nothing is sized from the data: no host sync."""
+    n = chunk.n_rows
+    pk = [(k, False) for k in _group_key_arrays(chunk, plan.partition)]
+    keys = pk + _sort_key_arrays(chunk, plan.order) or [(torch.zeros(
+        (n,), dtype=torch.int64, device=chunk.mask.device), False)]
+    perm = SORT.argsort_multi(keys, chunk.mask)
+    smask = chunk.mask[perm]
+    part_start, peer_start = W.make_boundaries(
+        [k[perm] for k, _ in keys], len(pk), smask)
+    pe = W.peer_ends(peer_start)  # default frame end: the peer run's last
+    cols = dict(chunk.cols)
+    for spec in plan.functions:
+        cols[spec.name] = _window_function(spec, chunk, plan, perm, smask,
+                                           part_start, peer_start, pe)
+    return Chunk(cols, chunk.mask)
+
+
+def _window_function(spec: WindowSpec, chunk: Chunk, plan: PhysWindow,
+                     perm, smask, part_start, peer_start, pe) -> DCol:
+    """One window function's column, in input row order (the JAX
+    package's ``_window_traced`` loop body); ``pe`` is each sorted
+    position's peer-run end."""
+    n = chunk.n_rows
+    f = spec.func
+    if f in ("row_number", "rank", "dense_rank", "ntile"):
+        res = (W.row_number(part_start) if f == "row_number" else
+               W.rank(part_start, peer_start) if f == "rank" else
+               W.dense_rank(part_start, peer_start) if f == "dense_rank"
+               else W.ntile(part_start, spec.offset))
+        return DCol(T.BIGINT, PLAIN, _unsort(res, perm))
+    if f in ("percent_rank", "cume_dist"):
+        res = (W.percent_rank if f == "percent_rank" else W.cume_dist)(
+            part_start, peer_start)
+        return DCol(T.DOUBLE, PLAIN, _unsort(res, perm))
+    if f in ("lead", "lag", "first_value", "last_value", "nth_value"):
+        # the source row's sorted position, gathered whole from the
+        # column: one path for every layout
+        c = eval_expr(spec.arg, chunk)
+        v = c.valid_or_true()[perm] & smask
+        pos_of = torch.arange(n, dtype=torch.int64, device=perm.device)
+        if f in ("lead", "lag"):
+            off = spec.offset if f == "lead" else -spec.offset
+            pos, valid = (W.kth_nonnull_shift(pos_of, v, part_start, off)
+                          if spec.ignore_nulls else
+                          W.shift_in_partition(pos_of, part_start, off))
+        elif f == "nth_value":
+            if spec.ignore_nulls:
+                pos, valid = W.nth_nonnull(v, part_start, pe, spec.offset)
+            else:
+                pos = part_start + spec.offset - 1
+                valid = pos <= pe
+        elif spec.ignore_nulls:
+            pos, valid = W.nonnull_frame_edge(v, part_start, pe,
+                                              f == "first_value")
+        else:
+            pos = part_start if f == "first_value" else pe
+            valid = torch.ones_like(smask)
+        src = perm[pos.clamp(0, max(n - 1, 0))]
+        return c.take(_unsort(src, perm), valid=_unsort(valid, perm))
+    if f not in ("sum", "count", "min", "max", "avg", "count_star"):
+        raise NotImplementedError(f"window function {f}")
+    vmask = smask
+    if f != "count_star":
+        c = eval_expr(spec.arg, chunk)
+        vmask = smask & c.valid_or_true()[perm]
+    if f in ("count", "count_star"):
+        vals, adt = None, T.BIGINT
+    elif c.kind != PLAIN or c.values.dtype == torch.bool:
+        raise NotImplementedError(
+            f"window {f}({c.dtype}, {c.kind}) on the torch path")
+    elif c.values.dim() == 2:
+        # a long decimal folds to DOUBLE, as in the JAX package and the
+        # planner's typing (Trino keeps decimal(38, s))
+        vals = I128.to_f64(*I128.unpack(c.values))[perm] \
+            / 10 ** _scale_of(c.dtype)
+        adt = T.DOUBLE
+    else:
+        vals = c.values[perm]
+        vals = vals.to(torch.float64 if vals.is_floating_point()
+                       else torch.int64)
+        adt = c.dtype
+    ones = vmask.to(torch.int64)
+    if spec.frame is not None:
+        lo, hi = _frame_lo_hi(spec.frame, chunk, plan, perm, part_start,
+                              peer_start)
+        cnt = W.framed_sum(ones, smask, lo, hi)
+    elif plan.order:
+        # default frame: RANGE UNBOUNDED PRECEDING → CURRENT ROW, peers
+        # included → the running value gathered at the peer run's end
+        cnt = W.running_sum(ones, part_start, smask)[pe]
+    else:
+        cnt = W.partition_total(ones, part_start, vmask, "count")
+    if f in ("count", "count_star"):
+        return DCol(T.BIGINT, PLAIN, _unsort(cnt, perm))
+    valid = _unsort(cnt > 0, perm)
+    if f in ("min", "max"):
+        mx = f == "max"
+        if vals.is_floating_point():
+            sentinel = float("-inf") if mx else float("inf")
+        else:
+            sentinel = A.I64_MIN if mx else A.I64_MAX
+        if spec.frame is not None and spec.frame[1][0] != \
+                "unbounded_preceding":
+            raise NotImplementedError(
+                "min/max frames must start UNBOUNDED PRECEDING")
+        if spec.frame is not None or plan.order:
+            run = W.segmented_cummin(torch.where(vmask, vals, sentinel),
+                                     part_start, maximum=mx)
+            res = run[hi.clamp(0, max(n - 1, 0))] if spec.frame is not None \
+                else run[pe]
+        else:
+            res = W.partition_total(vals, part_start, vmask, f)
+        if c.values.dim() == 1:
+            res = res.to(c.values.dtype)
+        return DCol(adt, PLAIN, _unsort(res, perm), validity=valid)
+    if spec.frame is not None:
+        tot = W.framed_sum(vals, vmask, lo, hi)
+    elif plan.order:
+        tot = W.running_sum(vals, part_start, vmask)[pe]
+    else:
+        tot = W.partition_total(vals, part_start, vmask, "sum")
+    if f == "avg":
+        res = (tot / cnt.clamp_min(1) if isinstance(adt, T.DoubleType)
+               else DEC.div_round_half_up(tot, cnt.clamp_min(1)))
+        return DCol(adt, PLAIN, _unsort(res, perm), validity=valid)
+    if isinstance(adt, T.DoubleType):
+        ot = T.DOUBLE
+    elif T.is_decimal(adt):
+        # int64 accumulator, as in the JAX package; decimal(38, s) is
+        # two words in this package
+        ot = T.decimal(38, _scale_of(adt))
+        tot = I128.pack(*I128.from_i64(tot))
+    else:
+        ot = T.BIGINT
+    return DCol(ot, PLAIN, _unsort(tot, perm), validity=valid)
+
+
+def _frame_lo_hi(frame, chunk: Chunk, plan: PhysWindow, perm, part_start,
+                 peer_start):
+    """[lo, hi] sorted-position bounds of an explicit ROWS, GROUPS or
+    RANGE frame."""
+    if frame[0] == "rows":
+        return W.frame_bounds(part_start, frame)
+    if frame[0] == "groups":
+        if not plan.order:
+            raise ValueError("GROUPS frame requires ORDER BY")
+        return W.groups_frame_bounds(part_start, peer_start, frame)
+    # RANGE: CURRENT ROW spans the peer run; value offsets need the
+    # single integer-valued ORDER BY key
+    offsets = {frame[1][0], frame[2][0]} & {"preceding", "following"}
+    if not offsets:
+        return W.range_frame_bounds(part_start, peer_start,
+                                    torch.zeros_like(part_start), frame,
+                                    False)
+    if len(plan.order) != 1:
+        raise NotImplementedError(
+            "RANGE frames require exactly one ORDER BY key")
+    oexpr, desc = plan.order[0]
+    oc = eval_expr(oexpr, chunk)
+    if oc.kind != PLAIN or oc.values.dim() != 1 \
+            or oc.values.is_floating_point() or oc.values.dtype == torch.bool:
+        raise NotImplementedError(
+            "RANGE frames require an integer-valued order key")
+    if oc.validity is not None:
+        raise NotImplementedError(
+            "RANGE value offsets over a nullable order key")
+    scale = 10 ** _scale_of(oc.dtype) if T.is_decimal(oc.dtype) else 1
+
+    def scaled(spec):
+        which, k = spec
+        return (which, None if k is None else int(k) * scale)
+
+    return W.range_frame_bounds(part_start, peer_start, oc.values[perm],
+                                (frame[0], scaled(frame[1]),
+                                 scaled(frame[2])), desc)
+
+
+# ---------------------------------------------------------------- grouping sets
+
+def _groupid(chunk: Chunk, keys, sets, gid_name: str) -> Chunk:
+    """GROUPING SETS row expansion: output row ``r*S + j`` is input row
+    ``r`` under grouping set ``j``.  A key column's copy is NULL where set
+    ``j`` leaves the key out; ``gid_name`` carries the set ordinal.  The
+    output is ``S`` times the input and no shape depends on the data."""
+    n, s = chunk.n_rows, len(sets)
+    dev = chunk.mask.device
+    rep = torch.arange(n, device=dev).repeat_interleave(s)
+    setid = torch.arange(s, device=dev).repeat(n)
+    copies = Chunk({name: c.take(rep) for name, c in chunk.cols.items()},
+                   chunk.mask[rep])
+    cols = dict(copies.cols)
+    member = torch.tensor(sets, dtype=torch.bool, device=dev).reshape(s, -1)
+    for ki, (out_name, e) in enumerate(keys):
+        # over the copies: a key that is a column shares their tensors
+        kc = eval_expr(e, copies)
+        part = member[setid, ki]
+        cols[out_name] = DCol(kc.dtype, kc.kind, kc.values, kc.lengths,
+                              part if kc.validity is None
+                              else kc.validity & part, kc.dictionary)
+    cols[gid_name] = DCol(T.BIGINT, PLAIN, setid.to(torch.int64))
+    return Chunk(cols, copies.mask)
 
 
 # ---------------------------------------------------------------- aggregation

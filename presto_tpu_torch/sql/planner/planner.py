@@ -1450,7 +1450,7 @@ class Planner:
                         if T.is_long_decimal(arg.dtype) or isinstance(
                                 arg.dtype, T.DoubleType):
                             # int128 inputs fold to double in the window
-                            # kernels (see _exec_window long-decimal note)
+                            # kernels (see physical._window_function)
                             dtype = T.DOUBLE
                         elif T.is_decimal(arg.dtype):
                             dtype = T.decimal(38, arg.dtype.scale)

@@ -2863,11 +2863,5 @@ limit 100
 # of exactly (engine = exact decimal, SQLite = float)
 FUZZY = {2, 4, 5, 7, 8, 9, 12, 13, 14, 17, 18, 20, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 35, 36, 39, 44, 47, 49, 53, 54, 57, 61, 63, 64, 65, 66, 70, 75, 76, 77, 78, 80, 81, 83, 85, 86, 89, 90, 92, 98}
 
-# what this package runs: the 77 queries that need no window and no
-# GROUPING SETS; the other 22 raise NotImplementedError naming the
-# operator (PhysWindow or PhysGroupId)
-NEEDS_OPERATOR = {
-    **{q: "PhysWindow" for q in (12, 20, 36, 44, 47, 49, 51, 53, 57, 63,
-                                 67, 70, 86, 89, 98)},
-    **{q: "PhysGroupId" for q in (5, 14, 18, 22, 27, 77, 80)}}
-RUNS = tuple(q for q in sorted(QUERIES) if q not in NEEDS_OPERATOR)
+# what this package runs: all 99 queries
+RUNS = tuple(sorted(QUERIES))

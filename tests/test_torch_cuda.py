@@ -215,12 +215,14 @@ def test_join_query_on_card_equals_cpu(card, q):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [2, 13, 19, 31, 39, 75, 90])
+@pytest.mark.parametrize("q", [2, 13, 19, 31, 39, 75, 90, 47, 51, 67])
 def test_tpcds_query_on_card_equals_cpu(card, q):
     """TPC-DS queries at SF0.02 on the card equal the port on the CPU
     (DOUBLE columns to 1e-9 relative): UNION ALL (q2, q75), DOUBLE CASE
     and casts (q31, q90), avg and stddev_samp (q13, q39), string columns
-    compared (q19); their joins went through the kernel."""
+    compared (q19), six windows over string partition keys (q47), running
+    ROWS frames (q51), a 9-set ROLLUP under rank (q67); their joins went
+    through the kernel."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.tpcds import generator as G
     from presto_tpu_torch.tpcds.queries import QUERIES

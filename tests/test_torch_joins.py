@@ -281,10 +281,8 @@ def test_q18_lower_threshold_returns_rows(port, ref):
 
 # constructs no TPC-H query reaches, which stay unported
 UNPORTED = {
-    "window": "select n_name, rank() over (order by n_regionkey) as r "
-              "from nation",
-    "grouping_sets": "select n_regionkey, count(*) as c from nation "
-                     "group by rollup (n_regionkey)",
+    "sum_distinct": "select sum(distinct n_regionkey) as s from nation",
+    "scalar_function_mod": "select mod(n_nationkey, 3) as x from nation",
     "scalar_function_sqrt": "select sqrt(n_nationkey) as x from nation",
     "bytes_like_underscore": "select count(*) as c from orders "
                              "where o_comment like '%special_requests%'",
@@ -451,15 +449,39 @@ KEYS = {
 }
 
 
+def _rev_oracle(port, desc: bool) -> dict:
+    """The ``*_order_*_nulls`` queries in Python integers over the host
+    tables: each nation's sum of acctbal^3 * 1000 (unscaled, scale 6) over
+    its suppliers below 0 or above 8000, NULL without one, NULLs last."""
+    sup = port.datasource.read_host("supplier", ("s_nationkey", "s_acctbal"))
+    nat = port.datasource.read_host("nation", ("n_nationkey",))
+    rev = {k: None for k in nat["n_nationkey"].to_pylist()}
+    for k, a in zip(sup["s_nationkey"].to_pylist(),
+                    sup["s_acctbal"].to_pylist()):
+        if a < 0 or a > 800000:
+            rev[k] = (rev[k] or 0) + a ** 3 * 1000
+    rows = sorted(rev.items(), key=lambda kv: (
+        kv[1] is None, 0 if kv[1] is None else -kv[1] if desc else kv[1],
+        kv[0]))
+    return {"n_nationkey": [k for k, _ in rows], "rev": [v for _, v in rows]}
+
+
 @pytest.mark.parametrize("name", sorted(KEYS))
 def test_keys_and_aggregates_equal_jax_engine(port, ref, name, no_launches):
-    got = _same(port.run_sql(KEYS[name]), ref.run_sql(KEYS[name]))
+    """Each case equals the JAX engine, except ``long_decimal_order_desc_
+    nulls``: the port puts NULLs last under DESC too (Trino's default),
+    the JAX package first, so that case is held to a Python oracle."""
+    if name == "long_decimal_order_desc_nulls":
+        got = _cols(port.run_sql(KEYS[name]))
+    else:
+        got = _same(port.run_sql(KEYS[name]), ref.run_sql(KEYS[name]))
     assert len(next(iter(got.values()))) > 0
     if "nulls" in name:
+        assert got == _rev_oracle(port, desc="desc" in name)
         rev = got["rev"]
         assert None in rev and min(v for v in rev if v is not None) < 0
         assert max(abs(v) for v in rev if v is not None) >= 2**64
-        assert (rev[-1] is None) == ("asc" in name)  # NULLS LAST ascending
+        assert rev[-1] is None  # NULLS LAST in both directions
 
 
 def test_grouped_min_max_of_dates_and_dictionaries(port):

@@ -2,10 +2,13 @@
 
 - The port's copy of the generator equals the JAX package's, array for
   array, for all 24 tables.
-- Each of the 77 queries the port runs (``queries.RUNS``) equals SQLite
-  over the same generated tables, under the JAX package's battery rule
+- Each of the 99 queries (``queries.RUNS``) equals SQLite over the same
+  generated tables, under the JAX package's battery rule
   (``tools/sqlite_tpcds_oracle.py``): exact outside ``FUZZY``, inside it
   the same row count and 95 % of the rows at 6 significant digits.
+- q36 (``grouping()`` and ``rank``), q51 (running ROWS frames) and q67 (a
+  9-set ROLLUP and ``rank``) also equal the JAX package, one query per
+  test: windows and GROUPING SETS end to end.
 - Each family of expressions this slice ports (literals, IS NULL, string
   against string, DICT substring, DOUBLE arithmetic, CASE, ORDER BY and
   GROUP BY, ``avg`` of an integer, ``stddev_samp``, the six scalar
@@ -16,8 +19,6 @@
 - Where the port departs from the JAX package on purpose, a Python oracle
   holds it: DICT against DICT compares strings, not codes; ``round`` of a
   DOUBLE rounds half away from zero; ``coalesce`` of strings.
-- The 22 queries that need a window or GROUPING SETS raise
-  ``NotImplementedError`` naming the operator.
 """
 
 import os
@@ -38,7 +39,7 @@ from presto_tpu_torch.exec.runner import LocalRunner
 from presto_tpu_torch.sql import ir
 from presto_tpu_torch.tpcds import generator as G
 from presto_tpu_torch.tpcds import schema as S
-from presto_tpu_torch.tpcds.queries import NEEDS_OPERATOR, QUERIES, RUNS
+from presto_tpu_torch.tpcds.queries import QUERIES, RUNS
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -138,12 +139,6 @@ def test_sqlite_check_takes_any_cut_of_the_ties_at_the_limit(port, db):
                                   and r not in rows)]):
         with pytest.raises(AssertionError):
             SO.check(db, 73, QUERIES[73], table(bad))
-
-
-@pytest.mark.parametrize("qid", sorted(NEEDS_OPERATOR))
-def test_window_and_grouping_sets_queries_raise(qid, port):
-    with pytest.raises(NotImplementedError, match=NEEDS_OPERATOR[qid]):
-        port.run_sql(QUERIES[qid])
 
 
 # ---------------------------------------------------------------- families
@@ -249,6 +244,12 @@ FAMILIES = {
         "union all select cast(null as decimal(38,2)) from reason) x "
         "order by s"),
 }
+
+
+@pytest.mark.parametrize("qid", [36, 51, 67])
+def test_window_and_grouping_sets_query_equals_jax(port, ref, qid):
+    got = _same(port.run_sql(QUERIES[qid]), ref.run_sql(QUERIES[qid]))
+    assert len(next(iter(got.values()))) > 0
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))

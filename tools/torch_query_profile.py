@@ -22,7 +22,11 @@ one warm-up run each, prints one JSON line per query with:
   the segment min/max and ``arbitrary``);
 - ``host_top``: the five functions of the port's ``ops`` package with the
   most cumulative host time under ``cProfile``, as shares of the run (a
-  separate run; cProfile slows Python, so these are shares, not times).
+  separate run; cProfile slows Python, so these are shares, not times);
+- ``peak_bytes``: the most device memory one warm run held above what was
+  allocated before it (``torch.cuda.max_memory_allocated``);
+- ``groupid_out``: rows and bytes (distinct tensor storages) of each
+  GROUPING SETS expansion (``physical._groupid``) of that run.
 
 It runs on the card only and exits non-zero without one.
 """
@@ -59,6 +63,7 @@ def main() -> int:
             ",".join(f"q{q}" for q in range(2, 23) if q not in (6, 14))
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    from presto_tpu_torch.exec import physical as P
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.tpcds import generator as DSG
     from presto_tpu_torch.tpcds.queries import QUERIES as DS_QUERIES
@@ -79,6 +84,19 @@ def main() -> int:
         DSG.attach(runner, args.sf)
         requests.update({f"tpcds_{name}": DS_QUERIES[int(name[1:])]
                          for name in args.tpcds.split(",")})
+    groupid_out = []
+    expand = P._groupid
+
+    def recorded_groupid(*args):
+        out = expand(*args)
+        tensors = {t.data_ptr(): t.numel() * t.element_size() for c in
+                   out.cols.values() for t in (c.values, c.lengths,
+                                               c.validity) if t is not None}
+        groupid_out.append({"rows": out.n_rows, "bytes": sum(
+            tensors.values()) + out.mask.numel()})
+        return out
+
+    P._groupid = recorded_groupid
     for name, sql in requests.items():
         runner.run_sql(sql)  # warm-up: generation, ingest, kernel build
         walls = []
@@ -89,6 +107,15 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
+
+        groupid_out.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runner.run_sql(sql)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        expansions = list(groupid_out)
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -125,7 +152,8 @@ def main() -> int:
             "idle_share": (1 - busy_ms / wall) if dev else "not measured",
             "device_ops": len(dev), "host_syncs": runner.last_host_syncs,
             "top_device": top_device, "scatter_ops": scatter_ops,
-            "host_top": host_top,
+            "host_top": host_top, "peak_bytes": peak,
+            "groupid_out": expansions,
             "card": card}), flush=True)
     return 0
 
