@@ -49,7 +49,24 @@ non-zero without printing a result):
    at SF0.02 equal SQLite under the JAX package's battery rule
    (``tools/sqlite_tpcds_oracle.py``; the SQLite step runs in a thread
    beside the CPU step);
-8. a ``kernels`` JSON line, then the card line, then the result line
+8. server: ``connect(schema="sf1")`` on the card behind a
+   ``StatementServer`` (loopback, one resource group admitting one
+   statement at a time, 64 queued): four client threads at once send the
+   22 TPC-H queries and the BIGINT sum over HTTP (``HttpClient``: POST,
+   then ``nextUri``), 92 statements, each FINISHED and equal to its numpy
+   oracle as the protocol renders it (decimals as scaled strings, dates
+   ISO); then one client, each request's warm HTTP time beside its DB-API
+   cursor and ``run_sql`` times; a statement of three pages; a memory
+   table of millions of lineitem rows written over HTTP (CTAS, INSERT,
+   UPDATE, DELETE, SHOW TABLES / STATS, a rolled-back DB-API transaction,
+   DROP with the pool's ``used`` back), each step held to numpy and
+   ``masked_sum`` and ``sorted_probe`` launched by its sum and join, the
+   inputs of each one's largest launch captured; EXPLAIN ANALYZE of Q3;
+   an unknown table and a syntax error.  Launch counts are reset before
+   the first HTTP statement and read after the last.  The two captured
+   launches are held to their plain versions and measured with the
+   TPC-DS ones, in the one fresh process of phase 7, after this phase;
+9. a ``kernels`` JSON line, then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -60,6 +77,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -310,7 +328,7 @@ def path_inputs(torch, runner):
         for name, (keys, probes) in probe_shapes.items()}
 
 
-def measure_masked_sum(torch, CK, okey, mask) -> dict:
+def measure_masked_sum(torch, CK, okey, mask, name="bigint_sum") -> dict:
     n = okey.shape[0]
     fns = {"kernel": lambda: CK.masked_sum(okey, mask),
            "plain": lambda: CK.masked_sum_plain(okey, mask),
@@ -318,8 +336,8 @@ def measure_masked_sum(torch, CK, okey, mask) -> dict:
     calls = call_ms(torch, fns)
     dev = device_ms(torch, {k: fns[k] for k in ("kernel", "library")})
     return dict(
-        shape=f"N={n} int64 values + bool mask",
-        max_abs_err=check_masked_sum(torch, CK, okey, mask, "path"),
+        shape=f"{name}: N={n} int64 values + bool mask",
+        max_abs_err=check_masked_sum(torch, CK, okey, mask, name),
         call_ms=calls["kernel"], device_ms=dev["kernel"],
         plain_ms=calls["plain"], library_ms=calls["library"],
         library_device_ms=dev["library"],
@@ -557,27 +575,26 @@ def tpcds_phase(torch, CK) -> dict:
             seconds=round(time.perf_counter() - t0, 3))
         say("tpcds_sqlite_check", **sqlite_job.result())
 
-    shapes = measure_apart(torch, {f"tpcds_{name}_q{b['q']}": b["inputs"]
-                                   for name, b in best.items()})
-    for shape in shapes:
-        say("measure", kernel="sorted_probe", **shape)
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "captured": {
+        f"tpcds_{name}_q{b['q']}": ("sorted_probe", b["inputs"])
+        for name, b in best.items()}}
 
 
 MEASURE_ARG = "--measure-probes"
 
 
 def measure_apart(torch, captured: dict) -> list:
-    """``measure_sorted_probe`` at each captured launch (name -> keys,
-    probes, n_valid), in a fresh process of this script started with
-    ``MEASURE_ARG`` and a file of the inputs under build/.  After the
-    TPC-DS main path this process's profiler records only part of a
-    window's device activities, and that stays so after
-    ``torch.cuda.empty_cache()``; a fresh process records them whole."""
+    """``measure_masked_sum`` or ``measure_sorted_probe`` at each captured
+    launch (name -> kernel, its inputs), in a fresh process of this script
+    started with ``MEASURE_ARG`` and a file of the inputs under build/.
+    After the TPC-DS main path this process's profiler records only part
+    of a window's device activities, and that stays so after
+    ``torch.cuda.empty_cache()``; a fresh process records them whole.
+    Each shape comes back with its ``kernel``."""
     path = os.path.join(ROOT, "build", "probe_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({name: [x.cpu() for x in inputs]
-                for name, inputs in captured.items()}, path)
+    torch.save({name: (kernel, [x.cpu() for x in inputs])
+                for name, (kernel, inputs) in captured.items()}, path)
     try:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               MEASURE_ARG, path], capture_output=True,
@@ -598,15 +615,340 @@ def measure_apart(torch, captured: dict) -> list:
 
 def measure_probes(path: str) -> int:
     """The child of ``measure_apart``: one ``measure`` line per launch
-    saved in ``path``, each with its ``shape`` name."""
+    saved in ``path``, each with its kernel and ``shape`` name."""
     import torch
     from presto_tpu_torch.ops import cuda_kernels as CK
     CK.build()
-    for name, inputs in torch.load(path).items():
-        keys, probes, n_valid = (x.cuda() for x in inputs)
-        print("[measure] " + json.dumps(measure_sorted_probe(
-            torch, CK, name, keys, probes, n_valid)), flush=True)
+    for name, (kernel, inputs) in torch.load(path).items():
+        args = [x.cuda() for x in inputs]
+        if kernel == "sorted_probe":
+            shape = measure_sorted_probe(torch, CK, name, *args)
+        else:
+            shape = measure_masked_sum(torch, CK, *args, name=name)
+        print("[measure] " + json.dumps(dict(kernel=kernel, **shape)),
+              flush=True)
     return 0
+
+
+# ---------------------------------------------------------------- server
+
+SERVER_CLIENTS = 4         # client threads of the concurrent pass
+SERVER_TIMED_RUNS = 3      # timed runs of each request by one client
+PAGED_DAY = "1995-03-15"
+PAGED_SQL = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+             f"where l_shipdate = date '{PAGED_DAY}' order by 1, 2")
+LI95_CTAS = ("create table li95 as select l_orderkey, l_partkey, l_quantity, "
+             "l_extendedprice, l_discount, l_shipdate from lineitem "
+             "where l_shipdate >= date '1995-01-01'")
+LI95_INSERT = ("insert into li95 select l_orderkey, l_partkey, l_quantity, "
+               "l_extendedprice, l_discount, l_shipdate from lineitem "
+               "where l_shipdate < date '1995-01-01'")
+LI95_AGG = ("select count(*) c, sum(l_orderkey) s, sum(l_partkey) p, "
+            "sum(l_quantity) q, sum(l_extendedprice) e, sum(l_discount) d, "
+            "min(l_shipdate) lo, max(l_shipdate) hi from li95")
+LI95_SUM = "select sum(l_orderkey) s, count(*) c from li95"
+LI95_JOIN = ("select o_orderpriority, count(*) c, sum(l_quantity) q "
+             "from li95, orders where l_orderkey = o_orderkey "
+             "group by o_orderpriority order by o_orderpriority")
+
+
+def _post(url: str, sql: str) -> dict:
+    """The last response body of one statement (POST, then nextUri)."""
+    import urllib.request
+    req = urllib.request.Request(f"{url}/v1/statement", data=sql.encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req) as r:
+        body = json.loads(r.read())
+    while "nextUri" in body:
+        with urllib.request.urlopen(body["nextUri"]) as r:
+            body = json.loads(r.read())
+    return body
+
+
+def _get(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url) as r:
+        return json.loads(r.read())
+
+
+def server_phase(torch, CK, NO, requests: dict, want: dict,
+                 card: str) -> dict:
+    """The client edge at SF1: a ``StatementServer`` over
+    ``connect(schema="sf1")`` on the card, admission through one resource
+    group of one running statement; four clients at once, then one, send
+    every request over HTTP; a statement of three pages; CTAS, INSERT,
+    UPDATE, DELETE, SHOW and DROP of a memory table of millions of rows and
+    a rolled-back transaction, each held to numpy; EXPLAIN ANALYZE of Q3;
+    two errors.  Launch counts are reset before the first statement and
+    read after the last (the run_sql and cursor runs timed beside the
+    HTTP ones are subtracted).  Returns the counts and the inputs of the
+    largest launch of each kernel in the ``li95`` sum and join
+    (``server_writes``), which only this phase forms."""
+    import concurrent.futures
+    from presto_tpu_torch.client.api import connect
+    from presto_tpu_torch.client.server import (PAGE_ROWS, HttpClient,
+                                                StatementServer)
+    from presto_tpu_torch.parallel.resource_groups import (
+        ResourceGroup, ResourceGroupManager)
+    from presto_tpu_torch.tpch.queries import QUERIES
+    from presto_tpu_torch.tpch.schema import TABLE_SCHEMAS
+
+    t_phase = time.perf_counter()
+    conn = connect(schema="sf1")
+    runner, ds = conn._runner, conn._runner.datasource
+    # the warm-up, through run_sql: ingest and plans; the SQL type of each
+    # request's columns, with which the numpy results are rendered
+    t0 = time.perf_counter()
+    types = {name: [str(c.dtype) for c in runner.run_sql(sql)
+                    .columns.values()] for name, sql in requests.items()}
+    warm_up_s = time.perf_counter() - t0
+    wire = {name: NO.wire_rows(want[name], types[name]) for name in requests}
+
+    def check(label, got, names, rows, col_types=None):
+        cols, data = got
+        if [c["name"] for c in cols] != list(names) or data != rows or (
+                col_types is not None
+                and [c["type"] for c in cols] != list(col_types)):
+            raise AssertionError(f"server {label}: {cols} {data[:5]} != "
+                                 f"oracle {list(names)} {rows[:5]}")
+
+    groups = ResourceGroupManager([ResourceGroup(
+        "global", hard_concurrency_limit=1, max_queued=64)],
+        [("*", "global")])
+    srv = StatementServer(conn, port=0, resource_groups=groups)
+    aside = {k: 0 for k in CK.LAUNCHES}  # launches of the timed-beside runs
+
+    def beside(fn):
+        before = dict(CK.LAUNCHES)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k in aside:
+            aside[k] += CK.LAUNCHES[k] - before[k]
+        return ms
+
+    try:
+        # the main path: counts reset just before, read just after
+        CK.reset_launches()
+
+        def client(k):
+            cli = HttpClient(srv.url, user=f"client{k}")
+            return {name: cli.execute(sql) for name, sql in requests.items()}
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+            passes = list(pool.map(client, range(SERVER_CLIENTS)))
+        concurrent_s = time.perf_counter() - t0
+        for k, got in enumerate(passes):
+            for name in requests:
+                check(f"client {k} {name}", got[name], want[name],
+                      wire[name], types[name])
+        admitted = _get(f"{srv.url}/v1/resourceGroup")[0]["admitted"]
+        states = [q["state"] for q in _get(f"{srv.url}/v1/query")]
+        if admitted != SERVER_CLIENTS * len(requests) or \
+                states != ["FINISHED"] * admitted:
+            raise AssertionError(f"server: {admitted} admitted, states "
+                                 f"{sorted(set(states))}")
+        say("server_concurrent", clients=SERVER_CLIENTS,
+            statements=admitted, all_finished=True, equal_oracle=True,
+            seconds=round(concurrent_s, 3), warm_up_s=round(warm_up_s, 3),
+            card=card)
+
+        # one client: HTTP beside the DB-API cursor and run_sql
+        cli = HttpClient(srv.url)
+        for name, sql in requests.items():
+            times = {"http": [], "cursor": [], "run_sql": []}
+            for _ in range(SERVER_TIMED_RUNS):
+                t0 = time.perf_counter()
+                got = cli.execute(sql)
+                times["http"].append((time.perf_counter() - t0) * 1e3)
+                check(f"timed {name}", got, want[name], wire[name])
+                times["cursor"].append(beside(
+                    lambda: conn.execute(sql).fetchall()))
+                times["run_sql"].append(beside(lambda: runner.run_sql(sql)))
+            med = {k: statistics.median(v) for k, v in times.items()}
+            say("server_request", name=name, sf=SF,
+                http_ms_median=med["http"], cursor_ms_median=med["cursor"],
+                run_sql_ms_median=med["run_sql"],
+                protocol_ms=med["http"] - med["run_sql"],
+                http_ms=times["http"], run_sql_ms=times["run_sql"],
+                rows=len(wire[name]), card=card)
+
+        # a statement of three pages and more
+        t = NO.Tables(ds)
+        paged = NO.shipped_on(t, PAGED_DAY)
+        schema = dict(TABLE_SCHEMAS["lineitem"])
+        paged_wire = NO.wire_rows(paged, [str(schema[c]) for c in paged])
+        paged_ms = []  # the first run uploads l_linenumber, the second
+        for _ in range(2):  # is warm
+            t0 = time.perf_counter()
+            got = cli.execute(PAGED_SQL)
+            paged_ms.append((time.perf_counter() - t0) * 1e3)
+            check("paged", got, paged, paged_wire)
+        if len(got[1]) <= 2 * PAGE_ROWS:
+            raise AssertionError(f"paged: {len(got[1])} rows, under three "
+                                 "pages")
+        say("server_paged", rows=len(got[1]),
+            pages=-(-len(got[1]) // PAGE_ROWS), equal_oracle=True,
+            first_ms=paged_ms[0], warm_ms=paged_ms[1], card=card)
+
+        writes = server_writes(torch, CK, NO, conn, cli, t, card)
+
+        # EXPLAIN ANALYZE of Q3: every operator with rows and ms, the
+        # root's rows Q3's, the self times within the root's wall
+        _, rows = cli.execute("explain analyze " + QUERIES[3])
+        lines = [r[0] for r in rows]
+        nodes = [ln for ln in lines if ln.lstrip().startswith("- ")]
+        stats = [re.search(r"\{rows: (\d+), wall: ([\d.]+)ms", ln)
+                 for ln in nodes]
+        wall = [float(re.match(r"analyze: ([\d.]+)ms", ln).group(1))
+                for ln in lines if ln.startswith("analyze: ")]
+        self_ms = sum(float(m.group(2)) for m in stats if m)
+        if not nodes or not all(stats) or not wall or \
+                int(stats[0].group(1)) != len(want["q3"]["l_orderkey"]) or \
+                self_ms > wall[0] + 5e-4 * len(nodes):
+            raise AssertionError("explain analyze q3:\n" + "\n".join(lines))
+        say("server_explain_analyze", query="q3", plan=lines,
+            operators=len(nodes), self_ms_sum=self_ms, wall_ms=wall[0],
+            card=card)
+
+        # errors come back through the protocol; the server answers after
+        errors = {sql: _post(srv.url, sql)["error"]["errorName"]
+                  for sql in ("select * from no_such_table_xyz",
+                              "selec 1 from nation")}
+        if list(errors.values()) != ["TABLE_NOT_FOUND", "SYNTAX_ERROR"] or \
+                cli.execute("select count(*) c from nation")[1] != [[25]]:
+            raise AssertionError(f"server errors: {errors}")
+        say("server_errors", errors=errors, answers_after=True)
+        launches = {k: CK.LAUNCHES[k] - aside[k] for k in CK.LAUNCHES}
+    finally:
+        srv.close()
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} never launched on the server path")
+    say("server_launch_check", launches=launches,
+        launches_beside=aside, **writes["launches"])
+    say("server_done", seconds=round(time.perf_counter() - t_phase, 3))
+    return {"launches": launches, "captured": writes["captured"]}
+
+
+def server_writes(torch, CK, NO, conn, cli, t, card: str) -> dict:
+    """CTAS, the sum (masked_sum) and the join (sorted_probe) over it,
+    INSERT, UPDATE, DELETE, SHOW TABLES / STATS, a rolled-back
+    transaction and DROP of ``li95``, over HTTP at SF1, each held to the
+    numpy copy (``NO.Li95``) and the stored snapshot to its arrays."""
+    import numpy as np
+    from presto_tpu_torch.tpch.schema import TABLE_SCHEMAS
+    ds = conn._runner.datasource
+    li = NO.Li95(t)
+    agg_names = ("c", "s", "p", "q", "e", "d", "lo", "hi")
+
+    def stored(label):
+        snap = ds.memory["li95"]
+        for c, v in li.cols.items():
+            if not np.array_equal(np.asarray(snap.columns[c].values), v):
+                raise AssertionError(f"li95 after {label}: column {c} "
+                                     "differs from the numpy copy")
+        got = cli.execute(LI95_AGG)
+        want_row = NO.wire_rows(dict(zip(agg_names, ([x] for x in
+                                                     li.agg_row()))),
+                                NO.LI95_AGG_TYPES)
+        if got[1] != want_row:
+            raise AssertionError(f"li95 after {label}: {got[1]} != "
+                                 f"{want_row}")
+
+    def timed(sql, want_rows, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cli.execute(sql)[1]
+        s = time.perf_counter() - t0
+        if got != [[want_rows]]:
+            raise AssertionError(f"{label}: {got} rows != {want_rows}")
+        stored(label)
+        return s
+
+    captured = {}
+
+    def launched(sql, kernel, name):
+        """Runs ``sql`` over HTTP; the inputs of ``kernel``'s launch with
+        the most rows (values summed, or probes) are kept as
+        ``captured[name]``, copied as the path gave them."""
+        best = {}
+
+        def record(*inputs):
+            n = inputs[1 if kernel == "sorted_probe" else 0].shape[0]
+            if n > best.get("n", -1):
+                best.update(n=n, inputs=[
+                    x.clone() if isinstance(x, torch.Tensor)
+                    else torch.tensor(int(x), device="cuda")
+                    for x in inputs])
+
+        setter = {"masked_sum": CK.set_sum_recorder,
+                  "sorted_probe": CK.set_probe_recorder}[kernel]
+        before = CK.LAUNCHES[kernel]
+        setter(record)
+        try:
+            got = cli.execute(sql)
+        finally:
+            setter(None)
+        n = CK.LAUNCHES[kernel] - before
+        if n <= 0:
+            raise AssertionError(f"{sql!r} launched no {kernel}")
+        captured[name] = (kernel, best["inputs"])
+        return got, n
+
+    pool_before = ds.pool.used
+    out = {"ctas_s": timed(LI95_CTAS, li.n, "ctas"), "ctas_rows": li.n}
+    got, out["sum_masked_sum_launches"] = launched(
+        LI95_SUM, "masked_sum", "server_li95_sum")
+    if got[1] != [[li.agg_row()[1], li.n]]:
+        raise AssertionError(f"li95 sum: {got[1]}")
+    got, out["join_sorted_probe_launches"] = launched(
+        LI95_JOIN, "sorted_probe", "server_li95_join_orders")
+    by = li.by_priority()
+    if got[1] != NO.wire_rows(by, ("varchar", "bigint", "decimal(15,2)")):
+        raise AssertionError(f"li95 join: {got[1]} != {by}")
+    n = li.insert_rest()
+    out.update(insert_s=timed(LI95_INSERT, n, "insert"), insert_rows=n)
+    full = {c: t.v("lineitem", c) for c in NO.LI95}
+    if li.n != full["l_orderkey"].shape[0]:
+        raise AssertionError("li95 after insert is not all of lineitem")
+    n = li.update_discount(50)
+    out.update(update_s=timed(
+        "update li95 set l_discount = 0 where l_quantity >= 50", n,
+        "update"), update_rows=n)
+    n = li.delete_shipped_before("1993-01-01")
+    out.update(delete_s=timed(
+        "delete from li95 where l_shipdate < date '1993-01-01'", n,
+        "delete"), delete_rows=n)
+    tables = [r[0] for r in cli.execute("show tables")[1]]
+    if "li95" not in tables or not set(TABLE_SCHEMAS) <= set(tables):
+        raise AssertionError(f"show tables: {tables}")
+    t0 = time.perf_counter()
+    got = cli.execute("show stats for li95")[1]
+    out["show_stats_s"] = time.perf_counter() - t0
+    if got != li.stats():
+        raise AssertionError(f"show stats: {got} != {li.stats()}")
+    # a transaction through the DB-API, rolled back: the sums come back
+    pre = cli.execute(LI95_AGG)[1]
+    conn.begin()
+    conn.execute("update li95 set l_quantity = 0, l_discount = 0")
+    during = cli.execute(LI95_AGG)[1]
+    conn.rollback()
+    after = cli.execute(LI95_AGG)[1]
+    if during[0][3:6] != ["0.00", pre[0][4], "0.00"] or after != pre:
+        raise AssertionError(f"rollback: {pre} -> {during} -> {after}")
+    stored("rollback")
+    cli.execute("drop table li95")
+    if ds.pool.used != pool_before or "li95" in ds.memory:
+        raise AssertionError(f"drop: pool used {ds.pool.used} != "
+                             f"{pool_before} before the CTAS")
+    launches = {k: out.pop(k) for k in list(out) if k.endswith("launches")}
+    say("server_writes", sf=SF, pool_used_before_ctas=pool_before,
+        pool_used_after_drop=ds.pool.used, rollback_restored=True,
+        show_stats_equal=True, card=card, **out)
+    return {"launches": launches, "captured": captured, **out}
 
 
 # ---------------------------------------------------------------- main
@@ -708,12 +1050,19 @@ def main() -> int:
         shapes["sorted_probe"].append(s)
     say("like", **measure_like(torch, runner, NO))
     tpcds = tpcds_phase(torch, CK)
-    shapes["sorted_probe"] += tpcds["shapes"]
+    server = server_phase(torch, CK, NO, requests, want, card)
+    # the TPC-DS and server paths' largest launches, each held to its
+    # plain version and measured in a fresh process
+    for shape in measure_apart(torch, {**tpcds["captured"],
+                                       **server["captured"]}):
+        say("measure", **shape)
+        shapes[shape.pop("kernel")].append(shape)
     kernels = []
     for name in sorted(CK.SOURCES):
         s = shapes[name][0]  # the main path's shape
         by_path = {"tpch": launches[name],
-                   "tpcds": tpcds["launches"][name]}
+                   "tpcds": tpcds["launches"][name],
+                   "server": server["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"presto_tpu_torch/csrc/{CK.SOURCES[name]}",

@@ -112,7 +112,13 @@ def from_host(col: Column, device) -> DCol:
                     _dev(col.lengths, device), validity)
     if col.kind != PLAIN:
         raise NotImplementedError(f"{col.kind} columns on the torch path")
-    return DCol(col.dtype, PLAIN, _dev(col.values, device), None, validity)
+    values = col.values
+    if T.is_long_decimal(col.dtype) and np.asarray(values).ndim == 1:
+        # exact python ints (a materialised long decimal, e.g. a memory
+        # table's column) → (hi, lo) words
+        from ..ops.int128 import from_host_ints
+        values = from_host_ints(values)
+    return DCol(col.dtype, PLAIN, _dev(values, device), None, validity)
 
 
 def to_host(col: DCol, sel: np.ndarray) -> Column:

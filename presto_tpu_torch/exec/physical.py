@@ -41,7 +41,8 @@ nested-value aggregates, and the partition-at-a-time memory tiers.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +56,7 @@ from ..ops import hashtable as HT
 from ..ops import int128 as I128
 from ..ops import sort as SORT
 from ..ops import window as W
+from ..utils.memory import col_bytes
 from .columns import Chunk, DCol
 from .expreval import as_double, dcol_to_bytes, eval_expr, eval_predicate
 from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
@@ -71,6 +73,8 @@ MIN_ROWS_FOR_COMPACTION = 1 << 14
 class ExecContext:
     datasource: object                      # DataSource
     host_syncs: int = 0                     # device→host scalar reads
+    collect_stats: bool = False             # EXPLAIN ANALYZE mode
+    node_stats: Dict[int, dict] = field(default_factory=dict)
 
 
 def _sync_int(ctx: ExecContext, t: torch.Tensor) -> int:
@@ -80,6 +84,35 @@ def _sync_int(ctx: ExecContext, t: torch.Tensor) -> int:
 
 
 def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
+    """Run ``plan``; with ``ctx.collect_stats`` (EXPLAIN ANALYZE) also
+    record each node's rows, output bytes, and its wall time with and
+    without its children (``tree_ms``, ``wall_ms``), fenced by
+    ``torch.cuda.synchronize`` on a card (the reference's OperationTimer,
+    ``operator/Driver.java:388`` → OperatorStats).  Off, it adds no
+    fence and no host read."""
+    if not ctx.collect_stats:
+        return _execute_node(plan, ctx)
+    device = ctx.datasource.device
+
+    def fence():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fence()
+    t0 = time.perf_counter()
+    out = _execute_node(plan, ctx)
+    fence()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = _sync_int(ctx, out.mask.sum())
+    nbytes = sum(col_bytes(c) for c in out.cols.values()) + out.mask.numel()
+    self_ms = wall - sum(ctx.node_stats.get(id(c), {}).get("tree_ms", 0.0)
+                         for c in plan.children())
+    ctx.node_stats[id(plan)] = {"rows": rows, "wall_ms": max(self_ms, 0.0),
+                                "tree_ms": wall, "bytes": nbytes}
+    return out
+
+
+def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
     if isinstance(plan, PhysScan):
         return ctx.datasource.scan(plan.table, plan.columns, plan.alias_prefix)
     if isinstance(plan, PhysFilter):

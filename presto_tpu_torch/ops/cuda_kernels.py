@@ -46,10 +46,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # launches of each kernel since the last reset_launches() — the proof that
 # a run went through the kernels and not their plain versions
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-# while set (set_probe_recorder), called with (sorted_keys, probe_keys,
-# n_valid) at every sorted_probe launch: how a caller captures the inputs
-# the main path gives the kernel, whoever imported the wrapper and how
+# while set (set_probe_recorder, set_sum_recorder), called with the inputs
+# of every sorted_probe (sorted_keys, probe_keys, n_valid) or masked_sum
+# (values, mask) launch: how a caller captures the inputs the main path
+# gives a kernel, whoever imported the wrapper and how
 _probe_recorder = None
+_sum_recorder = None
 # nvcc's output (with -Xptxas -v: registers, shared memory, spills) of each
 # source this process compiled
 BUILD_LOG: Dict[str, str] = {}
@@ -74,6 +76,13 @@ def set_probe_recorder(fn) -> None:
     ``sorted_probe`` from now on; ``None`` stops it."""
     global _probe_recorder
     _probe_recorder = fn
+
+
+def set_sum_recorder(fn) -> None:
+    """Call ``fn(values, mask)`` at every launch of ``masked_sum`` from
+    now on; ``None`` stops it."""
+    global _sum_recorder
+    _sum_recorder = fn
 
 
 def _nvcc() -> str:
@@ -206,6 +215,8 @@ def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             values.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
             _stream(index)), "masked_sum")
         LAUNCHES["masked_sum"] += 1
+        if _sum_recorder is not None:
+            _sum_recorder(values, mask)
     return out[0]
 
 

@@ -309,6 +309,18 @@ def seg_max128(vals2d, group, mask, capacity):
 
 # ------------------------------------------------- host conversion
 
+def from_host_ints(ints) -> np.ndarray:
+    """1-D array of exact python ints → [N,2] int64 (hi, lo) words (the
+    inverse of ``to_host_ints``)."""
+    a = np.asarray(ints, dtype=object)
+    out = np.empty((a.shape[0], 2), np.int64)
+    if a.shape[0]:
+        lo = a & (2**64 - 1)
+        out[:, 0] = (a >> 64).astype(np.int64)
+        out[:, 1] = np.where(lo >= 2**63, lo - 2**64, lo).astype(np.int64)
+    return out
+
+
 def to_host_ints(values2d) -> np.ndarray:
     """[N,2] host array → 1-D object array of exact python ints."""
     a = np.asarray(values2d)

@@ -69,6 +69,10 @@ class MemoryPool:
         self.reserved[tag] = (nbytes, revoke)
         self.peak = max(self.peak, self.used)
 
+    def reset_peak(self) -> None:
+        """Start a new peak from what is reserved now."""
+        self.peak = self.used
+
     def touch(self, tag):
         """LRU refresh."""
         if tag in self.reserved:

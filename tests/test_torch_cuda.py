@@ -237,3 +237,56 @@ def test_tpcds_query_on_card_equals_cpu(card, q):
     got = run(None)
     assert CK.LAUNCHES["sorted_probe"] > before
     SO.same_table(got, want, 1e-9, f"q{q}")
+
+
+@pytest.mark.cuda
+def test_connect_defaults_to_the_card(card):
+    from presto_tpu_torch.client.api import connect
+    conn = connect()
+    assert conn._runner.device.type == "cuda"
+    assert conn.execute("select count(*) c from nation").fetchall() == [(25,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 10])
+def test_join_through_the_server_on_card_launches_sorted_probe(card, q):
+    """A TPC-H join sent over HTTP runs on a handler thread of the server,
+    on the card: its rows equal the port's on the CPU rendered the same
+    way, and its join went through the kernel."""
+    from presto_tpu_torch.client.api import connect
+    from presto_tpu_torch.client.server import HttpClient, StatementServer
+    from presto_tpu_torch.tpch.queries import QUERIES
+
+    def over_http(device):
+        srv = StatementServer(connect(device=device))
+        try:
+            return HttpClient(srv.url).execute(QUERIES[q])
+        finally:
+            srv.close()
+
+    want = over_http("cpu")
+    before = CK.LAUNCHES["sorted_probe"]
+    got = over_http(None)
+    assert CK.LAUNCHES["sorted_probe"] > before
+    assert got == want and got[1]
+
+
+@pytest.mark.cuda
+def test_explain_analyze_on_card_fences_every_node(card):
+    """EXPLAIN ANALYZE on the card: every node carries rows and a wall
+    time, the root's rows are the query's, and the self times add up to
+    no more than the root's wall (each fenced by a synchronize)."""
+    import re
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpch.queries import QUERIES
+    r = LocalRunner(scale_factor=0.01)
+    rows = r.run_sql(QUERIES[3]).row_count
+    lines = r.run_sql("explain analyze " + QUERIES[3]).to_pydict()[
+        "Query Plan"]
+    nodes = [re.search(r"\{rows: (\d+), wall: ([\d.]+)ms", ln)
+             for ln in lines if ln.lstrip().startswith("- ")]
+    assert nodes and all(nodes)
+    assert int(nodes[0].group(1)) == rows
+    wall = float(next(re.match(r"analyze: ([\d.]+)ms", ln).group(1)
+                      for ln in lines if ln.startswith("analyze: ")))
+    assert sum(float(m.group(2)) for m in nodes) <= wall + 5e-4 * len(nodes)

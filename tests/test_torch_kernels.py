@@ -257,6 +257,17 @@ def test_probe_recorder_sees_launches_only():
     assert seen == [] and CK._probe_recorder is None
 
 
+def test_sum_recorder_sees_launches_only():
+    """As the probe recorder: a sum on the CPU records nothing."""
+    seen = []
+    CK.set_sum_recorder(lambda *a: seen.append(a))
+    try:
+        CK.masked_sum(torch.arange(5), torch.ones(5, dtype=torch.bool))
+    finally:
+        CK.set_sum_recorder(None)
+    assert seen == [] and CK._sum_recorder is None
+
+
 def test_chip_smoke_probe_bound_counts_a_sector_per_probe():
     """``chip_smoke.py``'s byte bound of ``sorted_probe``: probes and
     positions once, and of the keys one 32-byte sector per probe at most,

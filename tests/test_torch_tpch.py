@@ -154,6 +154,14 @@ from presto_tpu_torch.tpcds import generator, queries
 r = LocalRunner(scale_factor=0.01, device="cpu")
 generator.attach(r, 0.01)
 assert r.run_sql(queries.QUERIES[96]).row_count == 1
+from presto_tpu_torch.client.api import connect
+from presto_tpu_torch.client.server import HttpClient, StatementServer
+srv = StatementServer(connect(device="cpu"))
+try:
+    _, rows = HttpClient(srv.url).execute("select count(*) c from region")
+finally:
+    srv.close()
+assert rows == [[5]], rows
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "presto_tpu"
              or m.startswith("presto_tpu."))
@@ -166,8 +174,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Running Q6 and TPC-DS q96 through the port loads no jax and no
-    presto_tpu module, and no port source (nor its chip scripts and their
+    """Running Q6 and TPC-DS q96 through the port, and a statement through
+    its HTTP server, loads no jax and no presto_tpu module, and no port
+    source (nor its chip scripts and their
     numpy and SQLite oracles) imports them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT,

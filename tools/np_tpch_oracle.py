@@ -638,3 +638,118 @@ def oracle(ds, names=tuple(QUERIES)) -> dict:
     """The named queries' results over ``ds``'s host tables."""
     t = Tables(ds)
     return {name: QUERIES[name](t) for name in names}
+
+
+# ---------------------------------------------------------------- the wire
+
+def wire(v, sql_type: str):
+    """A value as the statement protocol sends it: a date in ISO form, a
+    decimal as its scaled string, a DOUBLE as a float, a string as
+    itself, any other number as an int; NULL as None."""
+    if v is None:
+        return None
+    if sql_type == "date":
+        return (dt.date(1970, 1, 1) + dt.timedelta(days=int(v))).isoformat()
+    if sql_type.startswith("decimal("):
+        scale = int(sql_type.rstrip(")").split(",")[1])
+        q, r = divmod(abs(int(v)), 10 ** scale)
+        sign = "-" if int(v) < 0 else ""
+        return f"{sign}{q}.{r:0{scale}d}" if scale else f"{sign}{q}"
+    if sql_type == "double":
+        return float(v)
+    if sql_type == "boolean":
+        return bool(v)
+    if sql_type.startswith(("varchar", "char")):
+        return str(v)
+    return int(v)
+
+
+def wire_rows(cols: dict, types) -> list:
+    """Rows of ``{column: values}`` as the protocol sends them, ``types``
+    the SQL type of each column in order."""
+    names = list(cols)
+    n = len(cols[names[0]]) if names else 0
+    return [[wire(cols[c][i], t) for c, t in zip(names, types)]
+            for i in range(n)]
+
+
+def shipped_on(t: Tables, iso: str) -> dict:
+    """l_orderkey, l_linenumber, l_extendedprice of the lineitem rows
+    shipped on ``iso``, ordered by the first two."""
+    rows = np.flatnonzero(t.v("lineitem", "l_shipdate") == days(iso))
+    okey = t.v("lineitem", "l_orderkey")[rows]
+    line = t.v("lineitem", "l_linenumber")[rows]
+    order = np.lexsort((line, okey))
+    return {"l_orderkey": _py(okey[order]), "l_linenumber": _py(line[order]),
+            "l_extendedprice": _py(
+                t.v("lineitem", "l_extendedprice")[rows][order])}
+
+
+# ---------------------------------------------------------------- li95
+
+LI95 = ("l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+        "l_discount", "l_shipdate")
+# the SQL types the statements below give their columns (decimals keep
+# lineitem's scale 2, dates are days)
+LI95_AGG_TYPES = ("bigint", "bigint", "bigint", "decimal(15,2)",
+                  "decimal(15,2)", "decimal(15,2)", "date", "date")
+
+
+class Li95:
+    """``chip_smoke.py``'s memory table ``li95`` (six lineitem columns,
+    the rows shipped in 1995 or later), kept as numpy arrays beside the
+    engine's copy: each write of the script is applied here too."""
+
+    def __init__(self, t: Tables):
+        self.t = t
+        full = {c: t.v("lineitem", c) for c in LI95}
+        m = full["l_shipdate"] >= days("1995-01-01")
+        self.cols = {c: v[m] for c, v in full.items()}
+        self.rest = {c: v[~m] for c, v in full.items()}
+
+    @property
+    def n(self) -> int:
+        return int(self.cols["l_orderkey"].shape[0])
+
+    def insert_rest(self) -> int:
+        """INSERT of lineitem's rows shipped before 1995."""
+        self.cols = {c: np.concatenate([v, self.rest[c]])
+                     for c, v in self.cols.items()}
+        return int(self.rest["l_orderkey"].shape[0])
+
+    def update_discount(self, quantity_at_least: int) -> int:
+        """UPDATE ... SET l_discount = 0 WHERE l_quantity >= q."""
+        hit = self.cols["l_quantity"] >= quantity_at_least * 100
+        self.cols["l_discount"] = np.where(hit, 0, self.cols["l_discount"])
+        return int(hit.sum())
+
+    def delete_shipped_before(self, iso: str) -> int:
+        """DELETE ... WHERE l_shipdate < iso."""
+        keep = self.cols["l_shipdate"] >= days(iso)
+        self.cols = {c: v[keep] for c, v in self.cols.items()}
+        return int((~keep).sum())
+
+    def agg_row(self) -> list:
+        """count, the sums of the five numbers, min and max ship date."""
+        c = self.cols
+        sums = [int(c[k].astype(np.int64).sum()) for k in LI95[:5]]
+        ship = c["l_shipdate"]
+        return [self.n] + sums + [int(ship.min()), int(ship.max())]
+
+    def by_priority(self) -> dict:
+        """Joined with orders on the order key, per o_orderpriority: rows
+        and the sum of l_quantity, by priority."""
+        t = self.t
+        row, found = lookup(t.v("orders", "o_orderkey"),
+                            self.cols["l_orderkey"])
+        prio = t.s("orders", "o_orderpriority")[row[found]]
+        qty = self.cols["l_quantity"][found]
+        names = sorted(set(prio.tolist()))
+        return {"o_orderpriority": names,
+                "c": [int((prio == p).sum()) for p in names],
+                "q": [int(qty[prio == p].sum()) for p in names]}
+
+    def stats(self) -> list:
+        """SHOW STATS rows: column, distinct values, low, high, rows."""
+        return [[c, int(np.unique(v).shape[0]), int(v.min()), int(v.max()),
+                 self.n] for c, v in self.cols.items()]
