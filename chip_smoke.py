@@ -12,7 +12,8 @@ non-zero without printing a result):
    plain PyTorch version at edge cases;
 4. queries: ``LocalRunner(scale_factor=1.0)`` on cuda runs all 22 TPC-H
    queries and a BIGINT sum through ``run_sql`` (one warm-up, then 5
-   timed runs each), every result equal to a numpy oracle over the same
+   timed runs each, the last one's peak bytes kept for phase 9), every
+   result equal to a numpy oracle over the same
    generated tables (``tools/np_tpch_oracle.py``); the kernels' launch
    counts are reset just before and read just after, each kernel must
    have launched, and ``sorted_probe`` must have launched in every query
@@ -66,8 +67,31 @@ non-zero without printing a result):
    the first HTTP statement and read after the last.  The two captured
    launches are held to their plain versions and measured with the
    TPC-DS ones, in the one fresh process of phase 7, after this phase;
-9. a ``kernels`` JSON line, then the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+9. tiers: the memory tiers on the card.  Budgeted SF1: phase 4's runner
+   takes each request of phase 4 and an ORDER BY of all 1,500,000 orders
+   (``TIERS_SORT``) in turn: one run at the default budget (its columns
+   cached), then the pool's budget set to its ``used`` bytes plus
+   ``TIERS_HEADROOM`` (64 MiB), so that a large join, aggregation or sort
+   runs one partition at a time; one warm-up and 3 timed runs, each equal
+   to the oracle (the ORDER BY to ``np.lexsort``), printed with
+   ``last_spill_partitions``, host syncs and peak bytes beside phase 4's
+   free-path time and peak.  Q1's aggregation, the ORDER BY and at least
+   ``TIERS_MIN_JOINS`` join queries must partition; the largest
+   ``sorted_probe`` launch inside a partitioned join is captured and
+   measured in the fresh process of phase 7.  Streamed SF10:
+   ``run_sql_streaming`` with ``STREAM_SLICE`` order units a slice (15
+   slices of lineitem) on Q1, Q6 and the ``STREAMED`` statements (a
+   BIGINT sum that launches ``masked_sum``, ``approx_distinct`` by
+   return flag, 15,000,000 groups by order key, a split-pruned orders
+   query reading at most 3 slices), each equal to numpy over the same
+   generated host tables (``np_tpch_oracle``), nothing of the table
+   cached; then Q1 on the resident path (bounded ingest of the same
+   slices), equal too, and the streamed Q1's peak must stay under half
+   the resident scan's bytes.  Launch counts of both paths are read
+   around their runs;
+10. a ``kernels`` JSON line (launches by path: tpch, tpcds, server, tiers,
+    streamed), then the card line, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
 no ``presto_tpu_torch`` package.
@@ -82,6 +106,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -951,6 +977,322 @@ def server_writes(torch, CK, NO, conn, cli, t, card: str) -> dict:
     return {"launches": launches, "captured": captured, **out}
 
 
+# ---------------------------------------------------------------- tiers
+
+TIERS_HEADROOM = 64 << 20  # the budget above the pool's used bytes
+TIERS_TIMED_RUNS = 3
+TIERS_SORT = ("select o_orderkey, o_totalprice from orders "
+              "order by o_totalprice desc, o_orderkey")
+# join requests that must run a partitioned join under the budget
+TIERS_MIN_JOINS = 5
+STREAM_SF = 10.0
+STREAM_SLICE = 1 << 20     # order units per slice: 15 slices of lineitem
+STREAM_SLICES = 15
+PRUNED_KEYS = (1_000_000, 2_000_000)
+STREAMED = {
+    "bigint_sum": "select sum(l_orderkey) s, count(*) c from lineitem",
+    "approx_distinct": "select l_returnflag, approx_distinct(l_partkey) a "
+                       "from lineitem group by l_returnflag "
+                       "order by l_returnflag",
+    "high_ndv": "select l_orderkey, sum(l_quantity) q, count(*) c "
+                "from lineitem group by l_orderkey order by l_orderkey",
+    "pruned": "select o_orderpriority, count(*) c, sum(o_totalprice) s "
+              "from orders where o_orderkey between "
+              f"{PRUNED_KEYS[0]} and {PRUNED_KEYS[1]} "
+              "group by o_orderpriority order by o_orderpriority"}
+
+
+def peak_start(torch) -> int:
+    """Fence the card, restart its peak statistics; the bytes allocated
+    now (a run's peak is ``max_memory_allocated()`` less these)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def scan_columns(plan, table: str) -> set:
+    """The columns every scan of ``table`` in ``plan`` reads."""
+    from presto_tpu_torch.exec.plan import PhysScan
+    out, stack = set(), [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, PhysScan) and node.table == table:
+            out |= set(node.columns)
+        stack.extend(node.children())
+    return out
+
+
+def _same_arrays(label: str, got, want: dict) -> None:
+    for c, w in want.items():
+        g = np.asarray(got.columns[c].values)
+        if g.dtype == object:
+            g = g.astype(np.int64)
+        if g.shape != np.shape(w) or not np.array_equal(g, w):
+            raise AssertionError(f"{label}: column {c} differs from numpy")
+
+
+def tiers_phase(torch, CK, NO, runner, requests: dict, want: dict,
+                free: dict, card: str) -> dict:
+    """Phase 9 (see the module docstring): the budgeted SF1 requests and
+    the streamed SF10 statements.  Returns the launches of each path and
+    the inputs of the largest ``sorted_probe`` launch inside a
+    partitioned join."""
+    t_phase = time.perf_counter()
+    budgeted = tiers_budgeted(torch, CK, NO, runner, requests, want, free,
+                              card)
+    streamed = tiers_streamed(torch, CK, card)
+    say("tiers_done", seconds=round(time.perf_counter() - t_phase, 3))
+    return {"launches": {"tiers": budgeted["launches"],
+                         "streamed": streamed},
+            "captured": budgeted["captured"]}
+
+
+def tiers_budgeted(torch, CK, NO, runner, requests: dict, want: dict,
+                   free: dict, card: str) -> dict:
+    """Each request at SF1 with the pool's budget at its ``used`` bytes
+    plus TIERS_HEADROOM: the columns stay cached, a large operator's
+    working set does not fit, so it runs partitioned.  Each run equal to
+    the oracle; the ORDER BY of every order equal to ``np.lexsort``."""
+    from presto_tpu_torch.exec import physical as PH
+    pool = runner.datasource.pool
+    default = pool.budget
+    t = NO.Tables(runner.datasource)
+    t.preload("orders", ("o_orderkey", "o_totalprice"))
+    sort_want = NO.orders_by_price(t)
+    best, inside, joined, current = {}, [0], {}, [None]
+    join_partitioned = PH._exec_join_partitioned
+
+    def partitioned_join(*args):
+        joined[current[0]] = joined.get(current[0], 0) + 1
+        inside[0] += 1
+        try:
+            return join_partitioned(*args)
+        finally:
+            inside[0] -= 1
+
+    def record(keys, probes, n_valid):
+        if inside[0] and int(n_valid) > 0 \
+                and probes.shape[0] > best.get("p", -1):
+            best.update(p=probes.shape[0], q=current[0], nv=int(n_valid),
+                        inputs=(keys.clone(), probes.clone(),
+                                torch.tensor(int(n_valid),
+                                             device=keys.device)))
+
+    def check(name, table):
+        if name == "order_by":
+            _same_arrays("tiers order_by", table, sort_want)
+        elif {c: col.to_pylist() for c, col in
+              table.columns.items()} != want[name]:
+            raise AssertionError(f"tiers {name}: differs from the oracle")
+
+    PH._exec_join_partitioned = partitioned_join
+    launches = {k: 0 for k in CK.LAUNCHES}
+    spilled = {}
+    try:
+        for name, sql in {**requests, "order_by": TIERS_SORT}.items():
+            current[0] = name
+            pool.budget = default
+            runner.run_sql(sql)  # warm: every column it scans cached
+            pool.budget = pool.used + TIERS_HEADROOM
+            # the main path of this phase: the runs under the budget
+            before = dict(CK.LAUNCHES)
+            CK.set_probe_recorder(record)
+            try:
+                check(name, runner.run_sql(sql))  # warm-up
+            finally:
+                CK.set_probe_recorder(None)
+            runs = []
+            for _ in range(TIERS_TIMED_RUNS):
+                base = peak_start(torch)
+                t0 = time.perf_counter()
+                table = runner.run_sql(sql)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated() - base
+                check(name, table)
+            per_run = {k: (CK.LAUNCHES[k] - before[k])
+                       // (1 + TIERS_TIMED_RUNS) for k in CK.LAUNCHES}
+            for k in launches:
+                launches[k] += CK.LAUNCHES[k] - before[k]
+            spilled[name] = runner.last_spill_partitions
+            say("tiers_request", name=name, sf=SF, budget=pool.budget,
+                pool_used=pool.used, warm_ms_median=statistics.median(runs),
+                warm_ms=runs, spill_partitions=runner.last_spill_partitions,
+                host_syncs=runner.last_host_syncs, peak_bytes=peak,
+                free_warm_ms=free.get(name, {}).get("warm_ms"),
+                free_peak_bytes=free.get(name, {}).get("peak_bytes"),
+                launches_per_run=per_run, equals_oracle=True, card=card)
+    finally:
+        PH._exec_join_partitioned = join_partitioned
+        pool.budget = default
+    joins = sorted(joined)
+    say("tiers_check", spilled={q: n for q, n in spilled.items() if n},
+        partitioned_joins=joins, launches=launches,
+        largest_partitioned_probe={k: best.get(k) for k in ("q", "p", "nv")})
+    if spilled["q1"] <= 0 or spilled["order_by"] <= 0:
+        raise AssertionError("Q1's aggregation or the ORDER BY did not run "
+                             "partitioned under the budget")
+    if len(joins) < TIERS_MIN_JOINS:
+        raise AssertionError(f"only {joins} ran partitioned joins")
+    if launches["sorted_probe"] <= 0 or "inputs" not in best:
+        raise AssertionError("no sorted_probe launch inside a partitioned "
+                             "join")
+    return {"launches": launches, "captured": {
+        f"tiers_partitioned_join_{best['q']}": ("sorted_probe",
+                                                best["inputs"])}}
+
+
+STREAM_ORACLE_ARG = "--stream-oracle"
+
+
+def stream_oracle(path: str, sf: str, lo: str, hi: str) -> int:
+    """The child of ``tiers_streamed``: the numpy answers of its
+    statements over the generated host tables at scale ``sf``
+    (``np_tpch_oracle``; the pruned query's keys in [lo, hi]), pickled to
+    ``path``.  It runs on the host beside the streamed runs, which
+    generate the same tables slice by slice."""
+    import pickle
+    import np_tpch_oracle as NO
+    from presto_tpu_torch.exec.datasource import DataSource
+    t = NO.Tables(DataSource(float(sf), "cpu"))
+    t.preload("lineitem", ("l_orderkey", "l_partkey", "l_quantity",
+                           "l_extendedprice", "l_discount", "l_tax",
+                           "l_returnflag", "l_linestatus", "l_shipdate"))
+    t.preload("orders", ("o_orderkey", "o_orderpriority", "o_totalprice"))
+    want = {"q1": NO.q1(t), "q6": NO.q6(t),
+            "bigint_sum": NO.lineitem_sum(t),
+            "approx_distinct": NO.approx_distinct_partkey(t),
+            "high_ndv": NO.orderkey_groups(t),
+            "pruned": NO.orders_in_keys(t, int(lo), int(hi))}
+    with open(path, "wb") as f:
+        pickle.dump(want, f)
+    return 0
+
+
+def tiers_streamed(torch, CK, card: str) -> dict:
+    """``run_sql_streaming`` at SF10, ``STREAM_SLICE`` order units a
+    slice: TPC-H Q1 and Q6 and the ``STREAMED`` statements, each against
+    numpy over the same generated host tables (computed by a child
+    process of this script while the statements run, ``stream_oracle``);
+    nothing of the streamed table cached; the streamed Q1's peak under
+    half the bytes of the resident path's scan of the same columns, which
+    is run once (bounded ingest of ``STREAM_SLICE`` units) and must agree
+    too.  Returns the launches of the streamed statements."""
+    import pickle
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpch.queries import QUERIES
+    from presto_tpu_torch.utils.memory import col_bytes
+    path = os.path.join(ROOT, "build", "stream_oracle.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t_oracle = time.perf_counter()
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              STREAM_ORACLE_ARG, path, str(STREAM_SF),
+                              *map(str, PRUNED_KEYS)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        r10 = LocalRunner(scale_factor=STREAM_SF)
+        ds = r10.datasource
+        statements = {"q1": QUERIES[1], "q6": QUERIES[6], **STREAMED}
+        launches = {k: 0 for k in CK.LAUNCHES}
+        runs = {}
+        for name, sql in statements.items():
+            ds.ingest_slices = 0
+            before = dict(CK.LAUNCHES)
+            base = peak_start(torch)
+            t0 = time.perf_counter()
+            got = r10.run_sql_streaming(sql, slice_rows=STREAM_SLICE)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            per = {k: CK.LAUNCHES[k] - before[k] for k in CK.LAUNCHES}
+            for k in launches:
+                launches[k] += per[k]
+            runs[name] = dict(
+                got=got, ms=ms, launches=per, slices=ds.ingest_slices,
+                peak=torch.cuda.max_memory_allocated() - base,
+                syncs=r10.last_host_syncs, streamed=r10.last_streamed,
+                cached=sorted({tb for tb, _ in ds._cols}))
+        del r10, ds
+        torch.cuda.empty_cache()
+        # the resident path of Q1 at SF10: bounded ingest, then a warm run
+        res = LocalRunner(scale_factor=STREAM_SF,
+                          ingest_slice_rows=STREAM_SLICE)
+        t0 = time.perf_counter()
+        first = res.run_sql(QUERIES[1])
+        first_s = time.perf_counter() - t0
+        ingest = res.datasource.ingest_slices
+        # the bytes of the columns Q1 scans (the page source may return
+        # more with them, and the cache keeps those too)
+        q1_cols = scan_columns(res.plan_sql(QUERIES[1]), "lineitem")
+        scan_bytes = sum(col_bytes(c) for (tb, name), c in
+                         res.datasource._cols.items()
+                         if tb == "lineitem" and name in q1_cols)
+        base = peak_start(torch)
+        t0 = time.perf_counter()
+        warm = res.run_sql(QUERIES[1])
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        res_peak = torch.cuda.max_memory_allocated() - base
+        del res
+        torch.cuda.empty_cache()
+        _, err = child.communicate(timeout=900)
+        if child.returncode:
+            raise AssertionError(f"the oracle process exited "
+                                 f"{child.returncode}: {err[-4000:]}")
+        with open(path, "rb") as f:
+            want = pickle.load(f)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if os.path.exists(path):
+            os.remove(path)
+    say("tiers_oracle", sf=STREAM_SF, process=True,
+        seconds_until_read=round(time.perf_counter() - t_oracle, 3))
+    for name, run in runs.items():
+        got = run["got"]
+        if name == "high_ndv":
+            _same_arrays("streamed high_ndv", got, want[name])
+        elif {c: col.to_pylist() for c, col in
+              got.columns.items()} != want[name]:
+            raise AssertionError(f"streamed {name}: {got.to_pydict()} != "
+                                 f"{want[name]}")
+        if not run["streamed"] or run["cached"]:
+            raise AssertionError(f"streamed {name}: streamed "
+                                 f"{run['streamed']}, cached {run['cached']}")
+        if name != "pruned" and run["slices"] != STREAM_SLICES:
+            raise AssertionError(f"streamed {name}: {run['slices']} slices")
+        if name == "pruned" and run["slices"] > 3:
+            raise AssertionError(f"pruned: {run['slices']} slices read")
+        if name == "bigint_sum" and run["launches"]["masked_sum"] <= 0:
+            raise AssertionError("the streamed BIGINT sum launched no "
+                                 "masked_sum")
+        say("tiers_streamed", name=name, sf=STREAM_SF,
+            slice_units=STREAM_SLICE, slices=run["slices"], ms=run["ms"],
+            peak_bytes=run["peak"], host_syncs=run["syncs"],
+            launches=run["launches"], rows=got.row_count,
+            result=got.to_pydict() if got.row_count <= 5 else None,
+            equals_oracle=True, card=card)
+    for label, table in (("first", first), ("warm", warm)):
+        if {c: col.to_pylist() for c, col in
+                table.columns.items()} != want["q1"]:
+            raise AssertionError(f"resident Q1 ({label}) differs")
+    q1_peak = runs["q1"]["peak"]
+    say("tiers_resident_q1", sf=STREAM_SF, ingest_slices=ingest,
+        scanned_columns=sorted(q1_cols),
+        first_run_s=round(first_s, 3), warm_ms=warm_ms,
+        streamed_ms=runs["q1"]["ms"], scan_bytes=scan_bytes,
+        peak_bytes=res_peak, streamed_peak_bytes=q1_peak,
+        streamed_peak_share=q1_peak / scan_bytes, equals_oracle=True,
+        card=card)
+    if ingest != STREAM_SLICES:
+        raise AssertionError(f"resident ingest: {ingest} slices")
+    if q1_peak * 2 >= scan_bytes:
+        raise AssertionError(f"streamed Q1 peak {q1_peak} B is not under "
+                             f"half the resident scan's {scan_bytes} B")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -990,7 +1332,7 @@ def main() -> int:
 
     # the main path: counts reset just before, read just after
     CK.reset_launches()
-    per_query = {}
+    per_query, free = {}, {}
     for name, sql in requests.items():
         before = dict(CK.LAUNCHES)
         t0 = time.perf_counter()
@@ -1001,21 +1343,24 @@ def main() -> int:
             raise AssertionError(f"{name}: {got} != oracle {want[name]}")
         runs = []
         for _ in range(TIMED_RUNS):
-            torch.cuda.synchronize()
+            base = peak_start(torch)
             t0 = time.perf_counter()
             table = runner.run_sql(sql)     # materialised to host
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - base
             if {c: col.to_pylist() for c, col in
                     table.columns.items()} != want[name]:
                 raise AssertionError(f"{name}: a timed run disagrees")
         launches = {k: (CK.LAUNCHES[k] - before[k]) // (1 + TIMED_RUNS)
                     for k in CK.LAUNCHES}
         per_query[name] = launches
+        free[name] = {"warm_ms": statistics.median(runs), "peak_bytes": peak}
         say("query", name=name, sf=SF, warm_ms_median=statistics.median(runs),
             warm_ms=runs, first_run_s=round(warm_up_s, 3),
             launches_per_run=launches, host_syncs=runner.last_host_syncs,
-            rows=len(next(iter(got.values()))), equals_oracle=True)
+            peak_bytes=peak, rows=len(next(iter(got.values()))),
+            equals_oracle=True)
     launches = dict(CK.LAUNCHES)
     if per_query["q14"]["sorted_probe"] <= 0:
         raise AssertionError("Q14 did not launch sorted_probe")
@@ -1051,10 +1396,12 @@ def main() -> int:
     say("like", **measure_like(torch, runner, NO))
     tpcds = tpcds_phase(torch, CK)
     server = server_phase(torch, CK, NO, requests, want, card)
-    # the TPC-DS and server paths' largest launches, each held to its
-    # plain version and measured in a fresh process
+    tiers = tiers_phase(torch, CK, NO, runner, requests, want, free, card)
+    # the TPC-DS, server and tier paths' largest launches, each held to
+    # its plain version and measured in a fresh process
     for shape in measure_apart(torch, {**tpcds["captured"],
-                                       **server["captured"]}):
+                                       **server["captured"],
+                                       **tiers["captured"]}):
         say("measure", **shape)
         shapes[shape.pop("kernel")].append(shape)
     kernels = []
@@ -1062,7 +1409,9 @@ def main() -> int:
         s = shapes[name][0]  # the main path's shape
         by_path = {"tpch": launches[name],
                    "tpcds": tpcds["launches"][name],
-                   "server": server["launches"][name]}
+                   "server": server["launches"][name],
+                   "tiers": tiers["launches"]["tiers"][name],
+                   "streamed": tiers["launches"]["streamed"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"presto_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -1087,4 +1436,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(measure_probes(sys.argv[2]) if sys.argv[1:2] == [MEASURE_ARG]
-             else main())
+             else stream_oracle(*sys.argv[2:6])
+             if sys.argv[1:2] == [STREAM_ORACLE_ARG] else main())

@@ -8,7 +8,18 @@ pruning, and keeps a device-resident column cache on the data source's
 ``device`` (scans of hot tables cost no host→device transfer after first
 touch).  The cache's byte budget is a revocable memory pool: cached
 columns drop back to the host tier (and are regenerated on the next
-touch) when the budget would be exceeded.
+touch) when the budget would be exceeded.  The same pool's remaining
+budget decides when an operator runs one partition at a time
+(``exec/physical.py``).
+
+Ingest is bounded: with ``ingest_slice_rows`` a table is read and
+uploaded in slices of that many of the connector's split units (orders
+for lineitem), so the host holds one slice at a time, not the table
+(the reference's page-at-a-time cursor, ``TpchRecordSet.cursor():86``).
+``scan_slice`` reads one uncached row range for the streaming
+aggregation.  ``ingest_slices`` counts every connector read.  A DICT
+column's dictionary is interned per (table, column) while its strings
+stay the same, so the slices of one column share one ``Dictionary``.
 
 Writes (CTAS, INSERT, the rebuilds of UPDATE and DELETE, DROP) store host
 ``Table`` snapshots in the memory connector; each bumps
@@ -32,12 +43,14 @@ from ..connector import CatalogManager, memory_connector, tpch_connector
 from ..data.column import PLAIN, Column, bytes_column
 from ..data.table import Table
 from ..utils.memory import MemoryPool, col_bytes
-from .columns import Chunk, DCol, from_host
+from .columns import Chunk, DCol, Dictionary, from_host
 
 
-def device_budget_bytes(device: torch.device) -> Optional[int]:
-    """Usable bytes for the scan cache on ``device``: 90% of what the card
-    reports free when the data source starts; None (unbounded) on the CPU."""
+def default_budget_bytes(device: torch.device) -> Optional[int]:
+    """Usable bytes on ``device`` when the caller names no budget: 90% of
+    what the card reports free when the data source starts; None
+    (unbounded) on the CPU, so the memory tiers stay off there unless a
+    budget is passed."""
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
@@ -45,14 +58,21 @@ def device_budget_bytes(device: torch.device) -> Optional[int]:
 
 
 class DataSource:
-    def __init__(self, scale_factor: float, device: torch.device):
+    def __init__(self, scale_factor: float, device: torch.device,
+                 device_budget_bytes: Optional[int] = None,
+                 ingest_slice_rows: Optional[int] = None):
         self.sf = scale_factor
         self.device = torch.device(device)
         self._cols: Dict[Tuple[str, str], DCol] = {}
+        self._dicts: Dict[Tuple[str, str], Dictionary] = {}
         self.catalog = CatalogManager()
         self.catalog.register(tpch_connector(scale_factor))
         self.catalog.register(memory_connector(self._bump))
-        self.pool = MemoryPool(device_budget_bytes(self.device))
+        self.pool = MemoryPool(default_budget_bytes(self.device)
+                               if device_budget_bytes is None
+                               else device_budget_bytes)
+        self.ingest_slice_rows = ingest_slice_rows
+        self.ingest_slices = 0  # connector reads (slices) so far
 
     @property
     def memory(self) -> Dict[str, Table]:
@@ -132,23 +152,69 @@ class DataSource:
             raise KeyError(f"unknown table {table}")
         return hit[0].metadata.row_count(hit[1])
 
-    def read_host(self, table: str, columns) -> dict:
-        """Host columns of the whole ``table``, as the connector's page
-        source returns them."""
+    def _resolve(self, table: str):
         hit = self.catalog.resolve(table)
         if hit is None:
             raise KeyError(f"unknown table {table}")
-        conn, tbl = hit
+        return hit
+
+    def split_units(self, table: str) -> int:
+        """The table's size in its connector's split units (orders for
+        lineitem): the unit of ``scan_slice`` and ``ingest_slice_rows``."""
+        conn, tbl = self._resolve(table)
+        return conn.split_manager.splits(tbl, 1)[0].row_count
+
+    def read_host(self, table: str, columns) -> dict:
+        """Host columns of the whole ``table``, as the connector's page
+        source returns them."""
+        conn, tbl = self._resolve(table)
         split = conn.split_manager.splits(tbl, 1)[0]
         return conn.page_source.read(tbl, list(columns), split.first_row,
                                      split.row_count)
 
+    def _upload(self, table: str, name: str, col) -> DCol:
+        """A host column → the device, its dictionary interned."""
+        dc = from_host(col, self.device)
+        if dc.dictionary is not None:
+            key = (table, name)
+            known = self._dicts.get(key)
+            if known is not None and np.array_equal(known.strings,
+                                                    dc.dictionary.strings):
+                dc.dictionary = known
+            else:
+                self._dicts[key] = dc.dictionary
+        return dc
+
+    def _read(self, table: str, columns, first: int, count: int) -> dict:
+        """One ingest slice: the page source's host columns for ``count``
+        split units from ``first`` (it may return more than ``columns``)."""
+        conn, tbl = self._resolve(table)
+        self.ingest_slices += 1
+        return conn.page_source.read(tbl, list(columns), first, count)
+
+    def _ingest(self, table: str, columns) -> Dict[str, DCol]:
+        """The whole table's ``columns`` (and any other the page source
+        returns with them) on the device, read and uploaded in slices of
+        ``ingest_slice_rows`` split units (one read when it is None): the
+        host holds one slice at a time.  The slices of a DICT column share
+        its interned dictionary, so they stay DICT end to end."""
+        from .physical import concat_chunks
+        conn, tbl = self._resolve(table)
+        split = conn.split_manager.splits(tbl, 1)[0]
+        first, count = split.first_row, split.row_count
+        step = self.ingest_slice_rows or count
+        parts = []  # an empty table is one read of no rows
+        for lo in range(first, first + max(count, 1), max(step, 1)):
+            host = self._read(table, columns, lo,
+                              min(step, first + count - lo))
+            cols = {n: self._upload(table, n, c) for n, c in host.items()}
+            parts.append(Chunk(cols, self._live(cols)))
+        return parts[0].cols if len(parts) == 1 else \
+            concat_chunks(parts).cols
+
     def scan(self, table: str, columns, alias_prefix: str = "") -> Chunk:
         missing = [c for c in columns if (table, c) not in self._cols]
-        fresh: Dict[str, DCol] = {}
-        if missing:
-            fresh = {n: from_host(c, self.device)
-                     for n, c in self.read_host(table, missing).items()}
+        fresh = self._ingest(table, missing) if missing else {}
         for name, dc in fresh.items():
             self._cache_col(table, name, dc)
         for c in columns:
@@ -157,11 +223,23 @@ class DataSource:
         for c in columns:
             dc = fresh.get(c) or self._cols.get((table, c))
             if dc is None:  # budget evicted it while caching siblings
-                dc = from_host(self.read_host(table, [c])[c], self.device)
+                dc = self._ingest(table, [c])[c]
             cols[alias_prefix + c] = dc
+        return Chunk(cols, self._live(cols))
+
+    def scan_slice(self, table: str, columns, first: int,
+                   count: int) -> Chunk:
+        """``count`` split units of ``table`` from ``first``, read (one
+        ingest slice) and uploaded, not cached: the bounded ingest and
+        the streaming aggregation read a table this way."""
+        host = self._read(table, columns, first, count)
+        cols = {n: self._upload(table, n, host[n]) for n in columns}
+        return Chunk(cols, self._live(cols))
+
+    def _live(self, cols: Dict[str, DCol]) -> torch.Tensor:
+        """An all-true row mask as long as ``cols``."""
         n = next(iter(cols.values())).n_rows
-        return Chunk(cols, torch.ones((n,), dtype=torch.bool,
-                                      device=self.device))
+        return torch.ones((n,), dtype=torch.bool, device=self.device)
 
     def _cache_col(self, table: str, name: str, dc: DCol) -> None:
         key = (table, name)

@@ -24,19 +24,42 @@ Operators ↔ reference:
                         (partition, order) keys, prefix computations
                         (``ops/window.py``), scattered back to input order
 - PhysGroupId         ← GroupIdOperator: each row once per grouping set
+- PhysMaterial        ← a chunk already on the device (a streamed slice,
+                        merged aggregation states)
+
+The memory tiers: when a join's, aggregation's or sort's working set
+(three times its inputs' bytes) passes the pool's remaining budget
+(``ExecContext.pool``), the operator runs one partition at a time, k of
+them (a power of two, 2-64, from the overshoot), and concatenates the
+partitions' outputs (``ExecContext.spill_partitions`` counts them): a
+join and an aggregation split rows by the high bits of the key hash
+(``ops/hashing.py``), so every key lives in one partition; a sort splits
+by sampled range splitters, so the partitions' concatenation is the
+order.  The reference spills to disk (``GenericPartitioningSpiller``,
+``SpillableHashAggregationBuilder``, ``OrderByOperator``'s sorted runs);
+here the input stays on the device and only the partition in flight is
+gathered (one stable sort by partition id, one host read of the k
+counts).  Mark, full and right joins stay in memory, as in the JAX
+package.
 
 Aggregates: count, sum, avg (a DOUBLE for integer and DOUBLE inputs),
 the variance family (the JAX package's one-pass formula), min/max of
-integers, dates, decimals and DOUBLEs, arbitrary, and count(DISTINCT x)
-through a second dedup pass over (group, value) pairs.  A DOUBLE key
+integers, dates, decimals and DOUBLEs, arbitrary, approx_distinct (HLL
+registers, ``ops/hll.py``) and count(DISTINCT x) through a second dedup
+pass over (group, value) pairs.  A DOUBLE key
 (group, join, sort) is its order-preserving int64 image.  A NULL sort key
 (ORDER BY and a window's ORDER BY) sorts after every value in both
 directions, Trino's default (the JAX package puts it first under DESC,
 and its windows order NULLs by whatever value their slots hold).
 
+Join keys compare by value: two DICT keys over different dictionaries
+compare their ranks in the sorted union of both, and a string key beside
+a BYTES key compares byte packs of one width (the JAX package compares
+the codes of different dictionaries).
+
 Not ported yet (they raise ``NotImplementedError`` naming the operator or
 aggregate): MATCH_RECOGNIZE, UNNEST, DISTINCT on any aggregate but count,
-nested-value aggregates, and the partition-at-a-time memory tiers.
+and nested-value aggregates.
 """
 
 from __future__ import annotations
@@ -52,21 +75,28 @@ from ..data import types as T
 from ..data.column import PLAIN, DICT, BYTES
 from ..ops import agg as A
 from ..ops import decimal as DEC
+from ..ops import hashing as HASH
 from ..ops import hashtable as HT
+from ..ops import hll as HLL
 from ..ops import int128 as I128
 from ..ops import sort as SORT
 from ..ops import window as W
-from ..utils.memory import col_bytes
+from ..utils.memory import chunk_bytes, col_bytes
 from .columns import Chunk, DCol
-from .expreval import as_double, dcol_to_bytes, eval_expr, eval_predicate
+from .expreval import (_pad_bytes, _rank_in, as_double, dcol_to_bytes,
+                       eval_expr, eval_predicate)
 from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
                    PhysGroupId, PhysHashAggregate, PhysHashJoin, PhysLimit,
-                   PhysOp, PhysProject, PhysScalarBind, PhysScan, PhysSort,
-                   PhysWindow, WindowSpec, _agg_output_type, _scale_of)
+                   PhysMaterial, PhysOp, PhysProject, PhysScalarBind,
+                   PhysScan, PhysSort, PhysWindow, WindowSpec,
+                   _agg_output_type, _scale_of)
 
 SEG_DIRECT_CAP = 512  # largest key domain grouped by its composite code
 COMPACT_THRESHOLD = 0.25  # compact a chunk when selectivity falls below
 MIN_ROWS_FOR_COMPACTION = 1 << 14
+MAX_PARTITIONS = 64  # most partitions one operator splits into
+HASH_BLOCK = 1 << 20  # rows hashed at a time for a partition id
+SPLITTER_SAMPLE = 4096  # rows sampled for a partitioned sort's splitters
 
 
 @dataclass
@@ -75,6 +105,11 @@ class ExecContext:
     host_syncs: int = 0                     # device→host scalar reads
     collect_stats: bool = False             # EXPLAIN ANALYZE mode
     node_stats: Dict[int, dict] = field(default_factory=dict)
+    # the pool whose remaining budget sends a join, aggregation or sort
+    # to its partition-at-a-time tier (None: always in memory), and the
+    # partitions such operators ran
+    pool: object = None                     # utils.memory.MemoryPool
+    spill_partitions: int = 0
 
 
 def _sync_int(ctx: ExecContext, t: torch.Tensor) -> int:
@@ -115,6 +150,8 @@ def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
 def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
     if isinstance(plan, PhysScan):
         return ctx.datasource.scan(plan.table, plan.columns, plan.alias_prefix)
+    if isinstance(plan, PhysMaterial):
+        return plan.chunk
     if isinstance(plan, PhysFilter):
         child = execute(plan.child, ctx)
         mask = eval_predicate(plan.predicate, child) & child.mask
@@ -128,8 +165,7 @@ def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
     if isinstance(plan, PhysHashJoin):
         return _exec_join(plan, ctx)
     if isinstance(plan, PhysSort):
-        out = _sort(execute(plan.child, ctx), plan.keys)
-        return out if plan.limit is None else _exec_limit(out, plan.limit)
+        return _exec_sort(plan, ctx)
     if isinstance(plan, PhysLimit):
         return _exec_limit(execute(plan.child, ctx), plan.n)
     if isinstance(plan, PhysScalarBind):
@@ -239,12 +275,6 @@ def _col_keys(c: DCol) -> List[torch.Tensor]:
     return [c.values.to(torch.int64)]
 
 
-def _key_arrays(chunk: Chunk, exprs: Sequence) -> List[torch.Tensor]:
-    """Key expressions → int64 tensors (join-equality semantics: validity
-    does NOT participate — callers' masks handle NULL keys)."""
-    return [k for e in exprs for k in _col_keys(eval_expr(e, chunk))]
-
-
 def _group_key_arrays(chunk: Chunk, exprs: Sequence) -> List[torch.Tensor]:
     """Key tensors with SQL GROUP BY null semantics: a nullable key adds its
     validity bit as a key and zeroes every key tensor where invalid, so all
@@ -342,6 +372,64 @@ def _sort(chunk: Chunk, keys) -> Chunk:
     perm = SORT.argsort_multi(_sort_key_arrays(chunk, keys), chunk.mask)
     cols = {n: c.take(perm) for n, c in chunk.cols.items()}
     return Chunk(cols, chunk.mask[perm])
+
+
+def _exec_sort(plan: PhysSort, ctx: ExecContext) -> Chunk:
+    child = execute(plan.child, ctx)
+    k = _tier_partitions(ctx, 3 * chunk_bytes(child))
+    out = (_sort(child, plan.keys) if k == 1
+           else _exec_sort_partitioned(plan, child, ctx, k))
+    return out if plan.limit is None else _exec_limit(out, plan.limit)
+
+
+def _lex_ge(arrays: List[torch.Tensor], pivot: List[torch.Tensor]):
+    """Row-wise lexicographic (arrays) >= (pivot scalars)."""
+    ge = torch.ones_like(arrays[0], dtype=torch.bool)
+    out = torch.zeros_like(ge)
+    for a, p in zip(arrays, pivot):
+        out = out | (ge & (a > p))
+        ge = ge & (a == p)
+    return out | ge
+
+
+def _sort_partition_ids(chunk: Chunk, keys, k: int) -> torch.Tensor:
+    """Range-partition ids (0..k-1, int16) from splitters sampled over this
+    package's own sort keys (``_sort_key_arrays``: a NULL flag leading a
+    nullable key, DICT string ranks), each made ascending (a descending
+    key complemented) and followed by the row index, so that runs of
+    equal keys split deterministically.  Partition p holds the rows
+    between splitters p and p + 1, so the partitions in order are the
+    sorted order, NULLs last in both directions."""
+    n = chunk.n_rows
+    normed = []
+    for a, desc in _sort_key_arrays(chunk, keys):
+        a = a.to(torch.int64)
+        normed.append(torch.where(chunk.mask, ~a if desc else a,
+                                  SORT.I64_MAX))
+    normed.append(torch.arange(n, dtype=torch.int64, device=chunk.mask.device))
+    s = min(SPLITTER_SAMPLE, n)
+    idx = (torch.arange(s, device=chunk.mask.device)
+           * max(n // max(s, 1), 1)) % n
+    samples = [a[idx] for a in normed]
+    order = SORT.argsort_multi([(g, False) for g in samples])
+    part = torch.zeros((n,), dtype=torch.int16, device=chunk.mask.device)
+    for i in range(1, k):
+        pos = order[(i * s) // k]
+        part += _lex_ge(normed, [g[pos] for g in samples]).to(torch.int16)
+    return part
+
+
+def _exec_sort_partitioned(plan: PhysSort, child: Chunk, ctx: ExecContext,
+                           k: int) -> Chunk:
+    """Sort under the budget: range partitions, each compacted and sorted
+    alone, concatenated in order (the reference spills sorted runs and
+    merges them, ``operator/OrderByOperator.java`` +
+    ``util/MergeSortedPages``; range partitions need no merge)."""
+    part = _sort_partition_ids(child, plan.keys, k)
+    ctx.spill_partitions += k
+    outs = [_sort(sub, plan.keys) for sub in
+            _partition_rows(child, part, k, ctx) if sub is not None]
+    return concat_chunks(outs) if outs else _no_rows(child)
 
 
 # ---------------------------------------------------------------- windows
@@ -561,6 +649,64 @@ def _groupid(chunk: Chunk, keys, sets, gid_name: str) -> Chunk:
     return Chunk(cols, copies.mask)
 
 
+# ---------------------------------------------------------------- memory tiers
+
+def _tier_partitions(ctx: ExecContext, need: int) -> int:
+    """1 when ``need`` bytes of working set fit the pool's remaining
+    budget (or there is no budget), else the power of two of partitions,
+    2 to MAX_PARTITIONS, that brings one partition's share under it."""
+    pool = ctx.pool
+    if pool is None or pool.budget is None:
+        return 1
+    avail = max(pool.budget - pool.used, 1)
+    if need <= avail:
+        return 1
+    return min(max(2, HT.next_pow2(-(-need // avail))), MAX_PARTITIONS)
+
+
+def _hash_partition(keys: List[torch.Tensor], k: int) -> torch.Tensor:
+    """Partition id in [0, k) of each row, int16: the high bits of the
+    keys' uint32 hash, independent of the low bits a table might use.
+    Hashed HASH_BLOCK rows at a time, so that the hash's int64
+    temporaries never span the whole input."""
+    shift = 32 - max(k.bit_length() - 1, 1)
+    n = keys[0].shape[0]
+    return torch.cat([
+        (HASH.hash_keys([x[i:i + HASH_BLOCK] for x in keys]) >> shift).to(
+            torch.int16) for i in range(0, max(n, 1), HASH_BLOCK)])
+
+
+def _partition_rows(chunk: Chunk, part: torch.Tensor, k: int,
+                    ctx: ExecContext):
+    """The live rows of each partition 0..k-1 in turn, each compacted in
+    row order (None for an empty one): one stable sort by the int16
+    partition id and one host read of the k counts, a partition gathered
+    only when its turn comes."""
+    pid = torch.where(chunk.mask, part, k)
+    del part  # the ids live on only in the order and the sizes
+    order = torch.sort(pid, stable=True).indices
+    ctx.host_syncs += 1
+    sizes = torch.bincount(pid, minlength=k + 1)[:k].tolist()
+    del pid
+    start = 0
+    for size in sizes:
+        idx = order[start:start + size]
+        start += size
+        yield None if size == 0 else Chunk(
+            {n: c.take(idx) for n, c in chunk.cols.items()},
+            torch.ones((size,), dtype=torch.bool, device=order.device))
+
+
+def _no_rows(chunk: Chunk) -> Chunk:
+    """A one-row chunk of ``chunk``'s columns with its row masked out (an
+    operator's input when a partitioned run leaves nothing)."""
+    if chunk.n_rows == 0:
+        return chunk
+    zero = torch.zeros((1,), dtype=torch.int64, device=chunk.mask.device)
+    return Chunk({n: c.take(zero) for n, c in chunk.cols.items()},
+                 torch.zeros((1,), dtype=torch.bool, device=zero.device))
+
+
 # ---------------------------------------------------------------- aggregation
 
 def _exec_agg(plan: PhysHashAggregate, ctx: ExecContext) -> Chunk:
@@ -571,6 +717,31 @@ def _exec_agg(plan: PhysHashAggregate, ctx: ExecContext) -> Chunk:
                 f"{spec.func}(DISTINCT) on the torch path")
     if not plan.groups:
         return _exec_global_agg(plan, child)
+    k = _tier_partitions(ctx, 3 * chunk_bytes(child))
+    if k > 1:
+        return _exec_agg_partitioned(plan, child, ctx, k)
+    return _agg_core(plan, child, ctx)
+
+
+def _exec_agg_partitioned(plan: PhysHashAggregate, child: Chunk,
+                          ctx: ExecContext, k: int) -> Chunk:
+    """Aggregation under the budget: rows split by the high bits of the
+    group-key hash, so each group lives in one partition and the
+    partitions' results concatenate with no merge (the reference's
+    ``SpillableHashAggregationBuilder`` spills by group hash and merges;
+    here the merge is designed away)."""
+    part = _hash_partition(_group_key_arrays(
+        child, tuple(e for _, e in plan.groups)), k)
+    ctx.spill_partitions += k
+    outs = [_agg_core(plan, sub, ctx) for sub in
+            _partition_rows(child, part, k, ctx) if sub is not None]
+    return concat_chunks(outs) if outs else _agg_core(plan, _no_rows(child),
+                                                       ctx)
+
+
+def _agg_core(plan: PhysHashAggregate, child: Chunk,
+              ctx: ExecContext) -> Chunk:
+    """The in-memory grouped aggregation of ``child``."""
     group_exprs = tuple(e for _, e in plan.groups)
     # group count can't exceed the live row count: a host read keeps every
     # [capacity]-shaped tensor proportional to the data, not the estimate
@@ -651,6 +822,10 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
     if spec.func == "count":
         return DCol(T.BIGINT, PLAIN, A.seg_count(slot, vmask, capacity),
                     validity=gvalid)
+    if spec.func == "approx_distinct":
+        regs = HLL.group_state(HASH.hash_keys(_col_keys(c)), slot, vmask,
+                               capacity)
+        return DCol(T.BIGINT, PLAIN, HLL.estimate(regs), validity=gvalid)
     dbl = isinstance(c.dtype, T.DoubleType)
     if spec.func == "sum" and (T.is_long_decimal(ot) or ot == T.BIGINT
                                or dbl):
@@ -723,6 +898,11 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         if spec.func == "count":
             out[spec.name] = DCol(T.BIGINT, PLAIN, A.g_count(m).reshape(1))
             continue
+        if spec.func == "approx_distinct":
+            regs = HLL.global_state(HASH.hash_keys(_col_keys(c)), m)
+            out[spec.name] = DCol(T.BIGINT, PLAIN,
+                                  HLL.estimate(regs).reshape(1))
+            continue
         if c.kind != PLAIN or c.values.dtype == torch.bool:
             raise NotImplementedError(
                 f"global {spec.func}({c.dtype}, {c.kind}) on the torch path")
@@ -765,41 +945,110 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
 
 # ---------------------------------------------------------------- joins
 
+PARTITIONED_KINDS = ("inner", "left", "semi", "anti")
+
+
 def _exec_join(plan: PhysHashJoin, ctx: ExecContext) -> Chunk:
     build = execute(plan.build, ctx)
     probe = execute(plan.probe, ctx)
-    # the memory tiers (partition-at-a-time joins) are not ported: every
-    # join runs in memory
+    k = 1
+    if plan.probe_keys and plan.kind in PARTITIONED_KINDS:
+        # the working set: the build's table and CSR links, the probe and
+        # its expansion, each about three times its input
+        k = _tier_partitions(ctx, 3 * chunk_bytes(build)
+                             + 3 * chunk_bytes(probe))
+    if k > 1:
+        return _exec_join_partitioned(plan, probe, build, ctx, k)
     return _join_core(plan, probe, build, ctx)
+
+
+def _exec_join_partitioned(plan: PhysHashJoin, probe: Chunk, build: Chunk,
+                           ctx: ExecContext, k: int) -> Chunk:
+    """Join under the budget: both sides split by the high bits of the
+    hash of their value-compared keys (``_join_key_arrays``), one
+    partition's build and probe joined at a time, so the table of one
+    partition is on the device at once (the reference's spilled join:
+    ``spiller/GenericPartitioningSpiller.java``, ``HashBuilderOperator``'s
+    SPILLING_INPUT, ``PartitionedConsumption`` replaying the probe).
+    Every key lives in one partition, so inner, left, semi and anti
+    results concatenate with no merge; a partition with no probe row
+    gives none of them a row, nor one with no build row an inner or semi
+    join."""
+    pk, bk = _join_key_arrays(plan, probe, build)
+    probes = _partition_rows(probe, _hash_partition(pk, k), k, ctx)
+    builds = _partition_rows(build, _hash_partition(bk, k), k, ctx)
+    del pk, bk
+    ctx.spill_partitions += k
+    outs = []
+    for sub_p, sub_b in zip(probes, builds):
+        if sub_p is None or (sub_b is None
+                             and plan.kind in ("inner", "semi")):
+            continue
+        outs.append(_join_core(plan, sub_p,
+                               _no_rows(build) if sub_b is None else sub_b,
+                               ctx))
+    if not outs:
+        return _join_core(plan, _no_rows(probe), _no_rows(build), ctx)
+    return concat_chunks(outs)
+
+
+def _join_key_arrays(plan: PhysHashJoin, probe: Chunk, build: Chunk):
+    """The probe's and the build's int64 key tensors, compared by value:
+    a DICT key beside a DICT key over another dictionary becomes its
+    codes' ranks in the sorted union of both dictionaries (as
+    ``expreval`` compares them); a string key beside a BYTES key, or two
+    BYTES keys of different widths, become byte packs of one width."""
+    pk: List[torch.Tensor] = []
+    bk: List[torch.Tensor] = []
+    for pe, be in zip(plan.probe_keys, plan.build_keys):
+        p, b = eval_expr(pe, probe), eval_expr(be, build)
+        if p.kind == DICT and b.kind == DICT \
+                and p.dictionary is not b.dictionary:
+            union = np.unique(np.concatenate([
+                np.asarray(p.dictionary.strings, dtype=str),
+                np.asarray(b.dictionary.strings, dtype=str)]))
+            pk.append(_rank_in(union, p))
+            bk.append(_rank_in(union, b))
+            continue
+        if BYTES in (p.kind, b.kind):
+            p, b = dcol_to_bytes(p), dcol_to_bytes(b)
+            w = max(p.values.shape[1], b.values.shape[1])
+            pk.extend(SORT.bytes_sort_keys(_pad_bytes(p.values, w),
+                                           p.lengths))
+            bk.extend(SORT.bytes_sort_keys(_pad_bytes(b.values, w),
+                                           b.lengths))
+            continue
+        pk.extend(_col_keys(p))
+        bk.extend(_col_keys(b))
+    return pk, bk
 
 
 def _join_core(plan: PhysHashJoin, probe: Chunk, build: Chunk,
                ctx: ExecContext) -> Chunk:
     build_count = _sync_int(ctx, build.mask.sum())
     capacity = HT.capacity_for(max(build_count, 1))
+    pk, bk = _join_key_arrays(plan, probe, build)
     if plan.kind == "mark":
         # NULL build keys never equal anything: they stay out of the table
         # and only set the mark's has-null flag
         nn, has_null = mark_build_nn(plan, build)
-        table = HT.build(_key_arrays(build, plan.build_keys), nn, capacity)
-        return _join_mark(plan, probe, table, has_null)
-    table = HT.build(_key_arrays(build, plan.build_keys), build.mask,
-                     capacity)
-    probe = _dynamic_filter(plan, probe, build, ctx)
+        table = HT.build(bk, nn, capacity)
+        return _join_mark(plan, probe, pk, table, has_null)
+    table = HT.build(bk, build.mask, capacity)
+    probe, pk = _dynamic_filter(plan, probe, pk, build, ctx)
     if plan.kind == "full":
-        return _join_full(plan, probe, build, table, ctx)
+        return _join_full(plan, probe, pk, build, bk, table, ctx)
     if plan.unique_build and plan.filter is None \
             and plan.kind in ("inner", "left", "semi", "anti"):
-        return _join_unique(plan, probe, build, table, ctx)
-    return _join_expand(plan, probe, build, table, ctx)
+        return _join_unique(plan, probe, pk, build, table, ctx)
+    return _join_expand(plan, probe, pk, build, table, ctx)
 
 
-def _join_unique(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
+def _join_unique(plan: PhysHashJoin, probe: Chunk, pk, build: Chunk, table,
                  ctx: ExecContext) -> Chunk:
     """Unique build side (PK of a FK join): one match at most per probe
     row, so the output has the probe's shape."""
-    match = HT.probe_unique(table, _key_arrays(probe, plan.probe_keys),
-                            probe.mask)
+    match = HT.probe_unique(table, pk, probe.mask)
     found = match >= 0
     if plan.kind == "semi":
         out = Chunk(dict(probe.cols), probe.mask & found)
@@ -830,14 +1079,13 @@ def mark_build_nn(plan: PhysHashJoin, build: Chunk):
     return nn, (build.mask & ~nn).any()
 
 
-def _join_mark(plan: PhysHashJoin, probe: Chunk, table,
+def _join_mark(plan: PhysHashJoin, probe: Chunk, pk, table,
                has_null) -> Chunk:
     """MARK semi-join: every probe row stays; the existence bit becomes a
     boolean column (read by OR-composed predicates) with SQL three-valued
     IN: NULL when the probe key is NULL, or when there is no match and the
     build side holds a NULL key."""
-    slot, _ = HT.probe_counts(table, _key_arrays(probe, plan.probe_keys),
-                              probe.mask)
+    slot, _ = HT.probe_counts(table, pk, probe.mask)
     probe_valid = _not_null(probe, plan.probe_keys,
                             torch.ones_like(probe.mask))
     found = (slot >= 0) & probe_valid
@@ -847,13 +1095,12 @@ def _join_mark(plan: PhysHashJoin, probe: Chunk, table,
     return Chunk(cols, probe.mask)
 
 
-def _join_expand(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
+def _join_expand(plan: PhysHashJoin, probe: Chunk, pk, build: Chunk, table,
                  ctx: ExecContext) -> Chunk:
     """Non-unique build side, or a residual filter: count the matches of
     each probe row, read the pair total on the host, then materialise the
     pairs."""
-    slot, cnt = HT.probe_counts(table, _key_arrays(probe, plan.probe_keys),
-                                probe.mask)
+    slot, cnt = HT.probe_counts(table, pk, probe.mask)
     if plan.kind in ("semi", "anti") and plan.filter is None:
         # not null-aware: NOT IN goes through the mark join
         found = slot >= 0
@@ -915,16 +1162,15 @@ def _join_expand_pairs(plan: PhysHashJoin, probe: Chunk, build: Chunk,
     return Chunk(cols, mask)
 
 
-def _full_join_tail(plan: PhysHashJoin, probe: Chunk, build: Chunk,
+def _full_join_tail(plan: PhysHashJoin, probe: Chunk, pk, build: Chunk, bk,
                     ctx: ExecContext) -> Chunk:
     """The build rows a FULL join did not match, probe columns NULL: a
     reverse probe of the build keys into a table over the non-NULL probe
     keys."""
     pnn = _not_null(probe, plan.probe_keys, probe.mask)
     pcap = HT.capacity_for(max(_sync_int(ctx, probe.mask.sum()), 1))
-    ptable = HT.build(_key_arrays(probe, plan.probe_keys), pnn, pcap)
-    slot, _ = HT.probe_counts(ptable, _key_arrays(build, plan.build_keys),
-                              build.mask)
+    ptable = HT.build(pk, pnn, pcap)
+    slot, _ = HT.probe_counts(ptable, bk, build.mask)
     bnn = _not_null(build, plan.build_keys, build.mask)
     unmatched = build.mask & ~((slot >= 0) & bnn)
     nb = build.n_rows
@@ -937,14 +1183,15 @@ def _full_join_tail(plan: PhysHashJoin, probe: Chunk, build: Chunk,
     return Chunk(cols, unmatched)
 
 
-def _join_full(plan: PhysHashJoin, probe: Chunk, build: Chunk, table,
-               ctx: ExecContext) -> Chunk:
+def _join_full(plan: PhysHashJoin, probe: Chunk, pk, build: Chunk, bk,
+               table, ctx: ExecContext) -> Chunk:
     """FULL OUTER join: the probe-outer expansion, then the unmatched
     build rows with NULL probe columns."""
     if plan.filter is not None:
         raise NotImplementedError("FULL JOIN with residual filter")
-    pairs = _join_expand(plan, probe, build, table, ctx)
-    return concat_chunks([pairs, _full_join_tail(plan, probe, build, ctx)])
+    pairs = _join_expand(plan, probe, pk, build, table, ctx)
+    return concat_chunks([pairs, _full_join_tail(plan, probe, pk, build, bk,
+                                                 ctx)])
 
 
 def _concat_validity(cols: List[DCol]):
@@ -991,23 +1238,28 @@ def concat_chunks(chunks: List[Chunk]) -> Chunk:
     return Chunk(out, torch.cat([ch.mask for ch in chunks]))
 
 
-def _dynamic_filter(plan: PhysHashJoin, probe: Chunk, build: Chunk,
-                    ctx: ExecContext) -> Chunk:
+def _dynamic_filter(plan: PhysHashJoin, probe: Chunk, pk, build: Chunk,
+                    ctx: ExecContext):
     """Dynamic filtering (reference: ``DynamicFilterSourceOperator``):
-    narrow the probe side to the build keys' [min, max] before probing."""
+    narrow the probe side to the build keys' [min, max] before probing.
+    Returns the probe and its key tensors (recomputed when the probe was
+    compacted)."""
     if plan.kind not in ("inner", "semi") or not plan.probe_keys:
-        return probe  # anti/left joins must keep unmatched probe rows
+        return probe, pk  # anti/left joins must keep unmatched probe rows
     if probe.n_rows < MIN_ROWS_FOR_COMPACTION:
-        return probe  # not worth the extra pass on small probes
+        return probe, pk  # not worth the extra pass on small probes
     pkc = eval_expr(plan.probe_keys[0], probe)
     bkc = eval_expr(plan.build_keys[0], build)
     if pkc.kind != PLAIN or bkc.kind != PLAIN or pkc.values.dim() != 1 \
             or bkc.values.dim() != 1 or pkc.values.is_floating_point() \
             or bkc.values.is_floating_point():
-        return probe
+        return probe, pk
     bmask = build.mask & bkc.valid_or_true()
     bv = bkc.values.to(torch.int64)
     pv = pkc.values.to(torch.int64)
     mask = probe.mask & (pv >= A.g_min(bv, bmask)) & (pv <= A.g_max(bv, bmask))
-    return _maybe_compact(Chunk(probe.cols, mask), ctx)
+    out = _maybe_compact(Chunk(probe.cols, mask), ctx)
+    if out.n_rows == probe.n_rows:
+        return out, pk
+    return out, _join_key_arrays(plan, out, build)[0]
 

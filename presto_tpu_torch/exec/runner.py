@@ -11,9 +11,15 @@ and the metrics registry.
 
 The runner runs on ``cuda``.  Without a CUDA device it raises, unless the
 caller asks for ``device="cpu"`` (the tests do); it never falls back on
-its own.  The JAX package's fused single-program path
-(``run_physical_fused``, ``run_fused_fragments``), its streaming path and
-its out-of-memory retry ladder are not ported.  Nor is
+its own.  The memory tiers: ``device_budget_bytes`` sizes the pool whose
+remaining budget makes a join, aggregation or sort run one partition at
+a time (``last_spill_partitions`` counts them), ``ingest_slice_rows``
+bounds the host's share of an upload, and ``run_sql_streaming`` answers an
+aggregation over one table slice by slice, the table never on the device
+(``exec/streaming.py``; ``last_streamed`` says whether it did).  The JAX
+package's fused single-program path (``run_physical_fused``,
+``run_fused_fragments``) and its out-of-memory retry ladder are not
+ported.  Nor is
 ``fold_row_columns``: the port refuses ROW columns past the scan, so a
 dotted alias such as ``"a.b"`` comes back as one plain column, as Trino
 returns it (the JAX package folds any dotted alias into a ROW).
@@ -61,15 +67,22 @@ def _one_row(**kv) -> Table:
 class LocalRunner:
     def __init__(self, schema: str = "tiny",
                  scale_factor: Optional[float] = None, device=None,
-                 access_control: Optional[AccessControl] = None):
+                 access_control: Optional[AccessControl] = None,
+                 device_budget_bytes: Optional[int] = None,
+                 ingest_slice_rows: Optional[int] = None):
         self.device = resolve_device(device)
         sf = SCHEMAS[schema] if scale_factor is None else scale_factor
-        self.datasource = DataSource(sf, self.device)
+        # one pool: the scan cache's revocable reservations and the
+        # operators' working-set checks share its budget
+        self.datasource = DataSource(sf, self.device, device_budget_bytes,
+                                     ingest_slice_rows)
         # sql → (plan, its planning warnings), for the catalog version
         # _plan_version only
         self._plan_cache: dict = {}
         self._plan_version = None
         self.last_host_syncs = 0  # device→host reads of the last query
+        self.last_spill_partitions = 0  # partitions the last query ran
+        self.last_streamed = False  # run_sql_streaming streamed the last
         # cross-cutting services (reference: Guice-injected AccessControl /
         # WarningCollector / @Managed metrics)
         self.access_control = access_control or AccessControl()
@@ -78,6 +91,8 @@ class LocalRunner:
         self.metrics = REGISTRY
         self.metrics.set_gauge("datasource.pool_used_bytes",
                                lambda: self.datasource.pool.used)
+        self.metrics.set_gauge("datasource.ingest_slices",
+                               lambda: self.datasource.ingest_slices)
 
     def _check_access(self, plan: PhysOp) -> None:
         """Every scan passes the AccessControl seam (reference:
@@ -104,10 +119,18 @@ class LocalRunner:
         self.metrics.count("queries.planned")
         return plan
 
-    def run_physical(self, plan: PhysOp) -> Table:
-        ctx = ExecContext(self.datasource)
-        table = materialize(execute(plan, ctx), ctx)
+    def _context(self, **kw) -> ExecContext:
+        return ExecContext(self.datasource, pool=self.datasource.pool, **kw)
+
+    def _finish(self, ctx: ExecContext, streamed: bool) -> None:
         self.last_host_syncs = ctx.host_syncs
+        self.last_spill_partitions = ctx.spill_partitions
+        self.last_streamed = streamed
+
+    def run_physical(self, plan: PhysOp) -> Table:
+        ctx = self._context()
+        table = materialize(execute(plan, ctx), ctx)
+        self._finish(ctx, streamed=False)
         return table
 
     def run_sql(self, sql: str) -> Table:
@@ -117,6 +140,27 @@ class LocalRunner:
         ddl = self._maybe_ddl(sql)
         if ddl is not None:
             return ddl
+        return self.run_physical(self._cached_plan(sql))
+
+    def run_sql_streaming(self, sql: str,
+                          slice_rows: int = 1 << 22) -> Table:
+        """An aggregation over one table, answered slice by slice
+        (``exec/streaming.py``): ``slice_rows`` split units at a time go
+        through the filters into PARTIAL states, so the device holds one
+        slice and the groups' states, never the table.  A plan of another
+        shape (a join below the aggregation, DISTINCT, a memory table)
+        runs through ``run_sql``; ``last_streamed`` says which path
+        answered."""
+        from .streaming import run_streaming_agg
+        ctx = self._context()
+        out = run_streaming_agg(self.datasource, self._cached_plan(sql), ctx,
+                                slice_rows)
+        if out is None:
+            return self.run_sql(sql)
+        self._finish(ctx, streamed=True)
+        return out
+
+    def _cached_plan(self, sql: str) -> PhysOp:
         version = self.datasource.catalog.version
         if version != self._plan_version:
             # every write moves the version: the older plans are dropped,
@@ -130,7 +174,7 @@ class LocalRunner:
         # a cached plan reports its own warnings, not the last planned
         # statement's (the JAX package keeps the last planned ones)
         plan, self.last_warnings = hit
-        return self.run_physical(plan)
+        return plan
 
     # -- DDL, DML and SHOW (the TableWriter/TableFinish analogue) ------
 
@@ -297,7 +341,7 @@ class LocalRunner:
         stats = None
         tail = []
         if analyze:
-            ctx = ExecContext(self.datasource, collect_stats=True)
+            ctx = self._context(collect_stats=True)
             execute(plan, ctx)
             stats = ctx.node_stats
             tail.append(f"analyze: {stats[id(plan)]['tree_ms']:.3f}ms wall, "

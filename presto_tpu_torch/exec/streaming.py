@@ -1,0 +1,276 @@
+"""Slice-at-a-time streaming aggregation: a table bigger than the card.
+
+Torch port of ``presto_tpu/exec/streaming.py``, the grouped-lifespan shape
+of the reference (``execution/SqlTaskExecution.java:225``
+SchedulingLifespanManager): the scan is read in ranges of split units
+(``DataSource.scan_slice``, never cached), each slice goes through the
+filters and projections into PARTIAL aggregation states
+(``parallel/distributed.py``), and only the groups' states stay on the
+device, merged eagerly every 8 slices.  The device holds O(slice + groups),
+never the table.
+
+A streamable plan is an aggregation over Filter/Project over one scan of
+a connector table, every aggregate with a mergeable state and none
+DISTINCT; a HAVING filter, projections, a sort and a limit above it run
+on the merged result.  Any other plan (a join below the aggregation, a
+memory table) gets None and the caller runs it whole (``run_sql``): a
+rule on the plan's shape, not a fallback.  A filter on the table's
+monotone key (``MONOTONE_KEYS``) prunes the units read
+(``pruned_unit_range``, the connector-pushdown role of
+``ConnectorMetadata.applyFilter``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..data import types as T
+from ..data.column import PLAIN
+from ..ops import hashtable as HT
+from ..ops import int128 as I128
+from ..parallel import distributed as D
+from ..sql import ir
+from ..sql.planner import domains as DOM
+from . import physical as PH
+from .columns import Chunk, DCol
+from .plan import (AggSpec, PhysFilter, PhysHashAggregate, PhysLimit,
+                   PhysMaterial, PhysOp, PhysProject, PhysScan, PhysSort,
+                   _agg_output_type)
+
+EAGER_MERGE = 8  # partial chunks kept before they merge into one
+# how the global path merges each partial column
+_GLOBAL_MERGE = {"count": "sum", "count_star": "sum", "sum": "sum",
+                 "min": "min", "max": "max"}
+
+
+def find_streamable_agg(plan: PhysOp
+                        ) -> Optional[Tuple[List[PhysOp], PhysHashAggregate,
+                                            PhysScan]]:
+    """(the nodes above the aggregation, the aggregation, its scan) when
+    the plan is [Sort|Limit|Project|Filter]* → Agg → [Filter|Project]* →
+    Scan with mergeable aggregates, else None."""
+    above: List[PhysOp] = []
+    node = plan
+    while isinstance(node, (PhysSort, PhysLimit, PhysProject, PhysFilter)):
+        above.append(node)
+        node = node.children()[0]
+    if not isinstance(node, PhysHashAggregate):
+        return None
+    agg = node
+    if any(s.distinct or s.func not in D.STATE_FUNCS for s in agg.aggs):
+        return None
+    below = agg.child
+    while isinstance(below, (PhysFilter, PhysProject)):
+        below = below.children()[0]
+    if not isinstance(below, PhysScan):
+        return None
+    return above, agg, below
+
+
+# tables whose named key grows with the generator's unit order: the
+# split-pruning targets (``TpchMetadata``'s orderkey/custkey orderings)
+MONOTONE_KEYS = {"orders": "o_orderkey", "lineitem": "l_orderkey",
+                 "customer": "c_custkey", "part": "p_partkey",
+                 "supplier": "s_suppkey"}
+
+
+def pruned_unit_range(agg_child: PhysOp, scan: PhysScan,
+                      total_units: int) -> Tuple[int, int]:
+    """(first unit, units) covering the domain the scan's filters prove
+    for the table's monotone key (TupleDomain-driven split pruning,
+    reference ``DomainTranslator`` + ``ConnectorMetadata.applyFilter``)."""
+    keycol = MONOTONE_KEYS.get(scan.table)
+    if keycol is None:
+        return 0, total_units
+    name = scan.alias_prefix + keycol
+    dom = DOM.ALL
+    node = agg_child
+    while isinstance(node, (PhysFilter, PhysProject)):
+        if isinstance(node, PhysFilter):
+            d = DOM.extract(node.predicate).get(name)
+            if d is not None:
+                dom = dom.intersect(d)
+        elif not any(n == name and isinstance(e, ir.ColumnRef)
+                     and e.name == name for n, e in node.projections):
+            # above this projection the key is not the column itself: the
+            # constraints gathered so far do not hold for it
+            dom = DOM.ALL
+        node = node.children()[0]
+    if dom.is_all:
+        return 0, total_units
+    if dom.none:
+        return 0, 0
+    if scan.table in ("orders", "lineitem"):
+        # invert dbgen's sparse orderkey (8 keys used of each 32)
+        def inv(k):
+            k = int(k)
+            return (k >> 5) * 8 + min(k & 31, 7)
+        lo = 0 if dom.lo is None else max(inv(dom.lo) - 1, 0)
+        hi = total_units if dom.hi is None \
+            else min(inv(dom.hi) + 1, total_units)
+    else:  # dense 1-based keys: key = unit + 1
+        lo = 0 if dom.lo is None else max(int(dom.lo) - 1, 0)
+        hi = total_units if dom.hi is None else min(int(dom.hi), total_units)
+    return lo, max(hi - lo, 0)
+
+
+def _substitute_scan(node: PhysOp, chunk: Chunk) -> PhysOp:
+    """A copy of the Filter/Project chain ``node`` over ``chunk``."""
+    if isinstance(node, PhysScan):
+        return PhysMaterial(chunk)
+    return dataclasses.replace(node, child=_substitute_scan(node.child,
+                                                            chunk))
+
+
+def _slices(ds, scan: PhysScan, lo: int, end: int, slice_rows: int):
+    """The scan's columns, ``slice_rows`` split units at a time."""
+    for first in range(lo, end, slice_rows):
+        sl = ds.scan_slice(scan.table, sorted(set(scan.columns)), first,
+                           min(slice_rows, end - first))
+        yield Chunk({scan.alias_prefix + k: v for k, v in sl.cols.items()},
+                    sl.mask)
+
+
+def _finish(above: List[PhysOp], out: Chunk, ctx: PH.ExecContext):
+    from .runner import materialize
+    for node in reversed(above):
+        out = PH.execute(dataclasses.replace(node, child=PhysMaterial(out)),
+                         ctx)
+    return materialize(out, ctx)
+
+
+def run_streaming_agg(ds, plan: PhysOp, ctx: PH.ExecContext,
+                      slice_rows: int = 1 << 22):
+    """Run an eligible aggregation plan slice by slice and return the host
+    Table; None when the plan is not streamable."""
+    found = find_streamable_agg(plan)
+    if found is None:
+        return None
+    above, agg, scan = found
+    hit = ds.catalog.resolve(scan.table)
+    if hit is None or hit[0].name == "memory":
+        return None  # a memory table is host data already: run it whole
+    total = ds.split_units(scan.table)
+    if total == 0:
+        return None
+    lo, cnt = (pruned_unit_range(agg.child, scan, total)
+               if hit[0].name == "tpch" else (0, total))
+    if cnt == 0:
+        # a provably empty domain: one unit still goes through the real
+        # filter, so that empty aggregates come out as they should
+        lo, cnt = 0, min(total, 1)
+    slices = _slices(ds, scan, lo, lo + cnt, max(int(slice_rows), 1))
+    if not agg.groups:
+        return _stream_global(above, agg, slices, ctx)
+    partials: List[Chunk] = []
+    specs = None
+    for sl in slices:
+        pre = PH.execute(_substitute_scan(agg.child, sl), ctx)
+        part, specs = _partial(agg, pre, ctx)
+        partials.append(part)
+        if len(partials) >= EAGER_MERGE:
+            # merged eagerly: the states stay bounded by the groups
+            partials = [_merge_states_only(agg, _cat(partials), specs, ctx)]
+    cat = _cat(partials)
+    merged, = _grow(ctx, lambda cap: D.merge_agg_states(agg, cat, specs, cap),
+                    _capacity(ctx, cat, agg.ndv_hint))
+    return _finish(above, PH._maybe_compact(merged, ctx), ctx)
+
+
+def _cat(chunks: List[Chunk]) -> Chunk:
+    return chunks[0] if len(chunks) == 1 else PH.concat_chunks(chunks)
+
+
+def _capacity(ctx, chunk: Chunk, hint: int) -> int:
+    """A group capacity for ``chunk``: no more groups than live rows (one
+    host read), nor than the planner's estimate."""
+    live = PH._sync_int(ctx, chunk.mask.sum())
+    return max(64, HT.capacity_for(min(hint, live + 1)))
+
+
+def _grow(ctx, step, capacity: int) -> tuple:
+    """``step(capacity)`` → (results..., overflow), the capacity doubled
+    until the group table does not overflow (each check one host read);
+    returns the results."""
+    while True:
+        *out, overflow = step(capacity)
+        if overflow is None or not PH._sync_int(ctx, overflow):
+            return tuple(out)
+        capacity *= 2
+
+
+def _live(chunk: Chunk, ctx) -> Chunk:
+    """``chunk`` compacted to its live rows (its groups)."""
+    return PH._compact(chunk, max(PH._sync_int(ctx, chunk.mask.sum()), 1))
+
+
+def _partial(agg: PhysHashAggregate, pre: Chunk, ctx):
+    """One slice's PARTIAL states, compacted to its live groups, and
+    their [(state column, merge function)]."""
+    part, specs = _grow(ctx, lambda cap: D.partial_agg_states(agg, pre, cap),
+                        _capacity(ctx, pre, agg.ndv_hint))
+    return _live(part, ctx), specs
+
+
+def _merge_states_only(agg: PhysHashAggregate, partials: Chunk, specs,
+                       ctx) -> Chunk:
+    """Duplicate groups' states combined, not finalized (the reference's
+    INTERMEDIATE step), compacted to the live groups."""
+    def step(cap):
+        owner, slot, overflow = D.group_partials(agg, partials, cap)
+        gvalid = owner != HT.EMPTY
+        rep = owner.clamp(max=max(partials.n_rows - 1, 0))
+        cols = {name: partials.cols[name].take(rep, valid=gvalid)
+                for name, _ in agg.groups}
+        for sname, sfunc in specs:
+            cols[sname] = D.merge_state(sfunc, partials.cols[sname],
+                                        partials, slot, cap, gvalid)
+        return Chunk(cols, gvalid), overflow
+
+    out, = _grow(ctx, step, _capacity(ctx, partials, agg.ndv_hint))
+    return _live(out, ctx)
+
+
+def _stream_global(above, agg: PhysHashAggregate, slices, ctx):
+    """A global aggregation (no GROUP BY): each slice's one-row partial
+    aggregate, ``avg`` split into its sum and count (the reference's
+    PARTIAL step), then one global aggregation over the partial rows:
+    counts and sums merge as sums, min and max as themselves.  An
+    aggregate with another state (the variance family, approx_distinct,
+    arbitrary) gets None: the caller runs the plan whole."""
+    expanded = []
+    for spec in agg.aggs:
+        if spec.func == "avg":
+            expanded += [AggSpec(f"{spec.name}#sum", "sum", spec.arg),
+                         AggSpec(f"{spec.name}#cnt", "count", spec.arg)]
+        elif spec.func in _GLOBAL_MERGE:
+            expanded.append(spec)
+        else:
+            return None
+    part_plan = PhysHashAggregate(None, (), tuple(expanded), 1)
+    parts = [PH._exec_global_agg(part_plan, PH.execute(
+        _substitute_scan(agg.child, sl), ctx)) for sl in slices]
+    merge_plan = PhysHashAggregate(None, (), tuple(
+        AggSpec(s.name, _GLOBAL_MERGE[s.func],
+                ir.ColumnRef(s.name, _agg_output_type(s)))
+        for s in expanded), 1)
+    merged = PH._exec_global_agg(merge_plan, _cat(parts))
+    cols = {}
+    for spec in agg.aggs:
+        if spec.func != "avg":
+            cols[spec.name] = merged.cols[spec.name]
+            continue
+        s = merged.cols[f"{spec.name}#sum"].values
+        n = merged.cols[f"{spec.name}#cnt"].values
+        ot = _agg_output_type(spec)
+        if T.is_decimal(spec.arg.dtype):
+            qhi, qlo = I128.div_round_half_up(
+                *I128.unpack(s), *I128.from_i64(n.clamp_min(1)))
+            v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
+        else:
+            v = s.to(torch.float64) / n.clamp_min(1)
+        cols[spec.name] = DCol(ot, PLAIN, v, validity=n > 0)
+    return _finish(above, Chunk(cols, merged.mask), ctx)

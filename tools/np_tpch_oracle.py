@@ -12,9 +12,11 @@ the query's order.
     import np_tpch_oracle as NO          # with tools/ on sys.path
     want = NO.oracle(runner.datasource, ("q3", "q18"))
 
-``chip_smoke.py`` holds the port's results on the card to it at SF1;
-``tests/test_torch_joins.py`` holds it to ``tests/tpch_oracle.py`` at
-SF0.01.
+``chip_smoke.py`` holds the port's results on the card to it at SF1 and
+its streamed aggregations to the ``STREAMED`` functions at SF10 (sums in
+Python ints, ``approx_distinct`` through a numpy copy of the engine's
+hash and HLL registers); ``tests/test_torch_joins.py`` holds it to
+``tests/tpch_oracle.py`` at SF0.01.
 """
 
 from __future__ import annotations
@@ -41,6 +43,14 @@ class Tables:
         self.ds = ds
         self.cols = {}
 
+    def preload(self, table: str, names) -> None:
+        """Read several columns of ``table`` in one pass of the
+        generator."""
+        missing = [n for n in names if (table, n) not in self.cols]
+        if missing:
+            for n, c in self.ds.read_host(table, missing).items():
+                self.cols[(table, n)] = c
+
     def col(self, table: str, name: str):
         if (table, name) not in self.cols:
             self.cols[(table, name)] = self.ds.read_host(table, (name,))[name]
@@ -60,6 +70,14 @@ class Tables:
         c = self.col(table, name)
         hit = np.array([bool(pred(str(x))) for x in c.dictionary])
         return hit[np.asarray(c.values)]
+
+
+def exact_sum(a: np.ndarray) -> int:
+    """Σ of an int64 array as a Python int: the high and low 32-bit halves
+    are summed apart (each partial sum fits int64 under 2^31 rows), so no
+    int64 sum can wrap."""
+    a = np.asarray(a, np.int64)
+    return (int((a >> 32).sum()) << 32) + int((a & 0xFFFFFFFF).sum())
 
 
 def lookup(keys: np.ndarray, probe: np.ndarray):
@@ -113,7 +131,7 @@ def q1(t: Tables) -> dict:
     for g in groups:
         sel = gid == g
         cnt = int(sel.sum())
-        s = {k: int(v[sel].sum()) for k, v in fields.items()}
+        s = {k: exact_sum(v[sel]) for k, v in fields.items()}
         out["l_returnflag"].append(str(rf_d[g // len(ls_d)]))
         out["l_linestatus"].append(str(ls_d[g % len(ls_d)]))
         for k in ("sum_qty", "sum_base_price", "sum_disc_price",
@@ -131,7 +149,7 @@ def q6(t: Tables) -> dict:
     m = ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
          & (disc >= 5) & (disc <= 7) & (t.v("lineitem", "l_quantity") < 2400))
     ep = t.v("lineitem", "l_extendedprice")
-    return {"revenue": [int((ep[m] * disc[m]).sum())]}
+    return {"revenue": [exact_sum(ep[m] * disc[m])]}
 
 
 def q14(t: Tables) -> dict:
@@ -148,7 +166,7 @@ def q14(t: Tables) -> dict:
 
 def bigint_sum(t: Tables) -> dict:
     m = t.v("lineitem", "l_shipdate") <= days("1998-09-02")
-    return {"s": [int(t.v("lineitem", "l_orderkey")[m].sum())],
+    return {"s": [exact_sum(t.v("lineitem", "l_orderkey")[m])],
             "c": [int(m.sum())]}
 
 
@@ -632,6 +650,105 @@ QUERIES = {"q1": q1, "q6": q6, "q14": q14, "bigint_sum": bigint_sum,
            "q18": q18, "q21": q21, "q7": q7, "q8": q8, "q9": q9,
            "q11": q11, "q12": q12, "q13": q13, "q15": q15, "q16": q16,
            "q19": q19, "q20": q20, "q22": q22}
+
+
+# ---------------------------------------------------------------- streamed
+
+def mix32(x: np.ndarray) -> np.ndarray:
+    """murmur3 fmix32 over uint32 (numpy's uint32 arithmetic wraps)."""
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def hash_i64(k: np.ndarray) -> np.ndarray:
+    """The engine's uint32 hash of an int64 key (``ops/hashing.py``)."""
+    k = np.asarray(k, np.int64)
+    lo = (k & 0xFFFFFFFF).astype(np.uint32)
+    hi = ((k >> 32) & 0xFFFFFFFF).astype(np.uint32)
+    return mix32(lo ^ (mix32(hi) + np.uint32(0x9E3779B9)))
+
+
+def hll_estimate(groups: np.ndarray, n_groups: int, keys: np.ndarray,
+                 p: int = 11) -> np.ndarray:
+    """``approx_distinct`` per group: 2^p int8 registers per group (the
+    rank of the first set bit of the hash's high 32 - p bits, a zero word
+    ranking 33 - p), then the engine's estimate (``ops/hll.py``)."""
+    m = 1 << p
+    h = hash_i64(keys).astype(np.int64)
+    w = h >> p
+    bits = np.zeros_like(w)
+    for s in (16, 8, 4, 2, 1):
+        big = w >= (1 << s)
+        w = np.where(big, w >> s, w)
+        bits += big * s
+    rho = 32 - (bits + (w > 0)) - p + 1
+    regs = np.zeros(n_groups * m, np.int8)
+    slot = groups.astype(np.int64) * m + (h & (m - 1))
+    for r in range(1, 34 - p):  # ascending ranks: the last write is the max
+        regs[slot[rho == r]] = r
+    regs = regs.reshape(n_groups, m)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    e = alpha * m * m / np.exp2(-regs.astype(np.float64)).sum(-1)
+    zeros = (regs == 0).sum(-1)
+    lc = m * np.log(m / np.maximum(zeros, 1).astype(np.float64))
+    est = np.where((e <= 2.5 * m) & (zeros > 0), lc, e)
+    two32 = 2.0 ** 32
+    est = np.where(est > two32 / 30.0, -two32 * np.log1p(-est / two32), est)
+    return np.round(est).astype(np.int64)
+
+
+def lineitem_sum(t: Tables) -> dict:
+    """sum(l_orderkey), count(*) over all of lineitem."""
+    k = t.v("lineitem", "l_orderkey")
+    return {"s": [exact_sum(k)], "c": [int(k.shape[0])]}
+
+
+def approx_distinct_partkey(t: Tables) -> dict:
+    """approx_distinct(l_partkey) per l_returnflag, in flag order."""
+    rf = t.col("lineitem", "l_returnflag")
+    codes = np.asarray(rf.values).astype(np.int64)
+    est = hll_estimate(codes, len(rf.dictionary), t.v("lineitem",
+                                                      "l_partkey"))
+    present = np.unique(codes)
+    order = sorted(present.tolist(), key=lambda c: str(rf.dictionary[c]))
+    return {"l_returnflag": [str(rf.dictionary[c]) for c in order],
+            "a": [int(est[c]) for c in order]}
+
+
+def orderkey_groups(t: Tables) -> dict:
+    """l_orderkey, sum(l_quantity), count(*) per order, in key order, as
+    numpy arrays (15 M groups at SF10)."""
+    key = t.v("lineitem", "l_orderkey")
+    keys, q = group_sum(key, t.v("lineitem", "l_quantity"))
+    _, c = group_sum(key, np.ones(key.shape[0], np.int64))
+    return {"l_orderkey": keys, "q": q, "c": c}
+
+
+def orders_in_keys(t: Tables, lo: int, hi: int) -> dict:
+    """o_orderpriority, count(*), sum(o_totalprice) of the orders with
+    o_orderkey in [lo, hi], in priority order."""
+    m = (t.v("orders", "o_orderkey") >= lo) & (t.v("orders",
+                                                   "o_orderkey") <= hi)
+    pr = t.col("orders", "o_orderpriority")
+    codes = np.asarray(pr.values)[m]
+    price = t.v("orders", "o_totalprice")[m]
+    order = sorted(np.unique(codes).tolist(),
+                   key=lambda c: str(pr.dictionary[c]))
+    return {"o_orderpriority": [str(pr.dictionary[c]) for c in order],
+            "c": [int((codes == c).sum()) for c in order],
+            "s": [exact_sum(price[codes == c]) for c in order]}
+
+
+def orders_by_price(t: Tables) -> dict:
+    """Every order's key and total price, o_totalprice DESC, o_orderkey."""
+    k, p = t.v("orders", "o_orderkey"), t.v("orders", "o_totalprice")
+    order = np.lexsort((k, -p))
+    return {"o_orderkey": k[order], "o_totalprice": p[order]}
 
 
 def oracle(ds, names=tuple(QUERIES)) -> dict:
