@@ -36,6 +36,20 @@ non-zero without printing a result):
 6. like: ``strings.like`` (plain torch, no kernel of its own) on SF1's
    ``o_comment`` with Q13's pattern, its mask equal to the oracle's
    ``str.find`` match, timed the same two ways;
+6b. scalars: phase 4's runner and SF1 tables take the ``SCALARS``
+   statements of ``tools/np_tpch_oracle.py`` (IN over a decimal, NOT IN
+   with a NULL, ``mod``, ``nullif``, ``greatest``/``least``, ``length``
+   and ``lower`` of a DICT and of a BYTES column, min/max of DICT columns
+   by return flag, ``sum(sqrt(..))``/``sum(ln(..))``, a ``bitwise_and``
+   BIGINT sum that launches ``masked_sum``, a join on the BIGINT order
+   key filtered by a decimal IN that launches ``sorted_probe``, and
+   ``count(distinct unique_id())``), one warm-up and 3 timed runs each,
+   every run equal to the numpy oracle (DOUBLE sums to 1e-12 relative of
+   ``math.fsum``); one line per statement with its warm median, host
+   syncs and launches; launch counts are reset just before the phase and
+   read just after, and both kernels must launch in it; the inputs of
+   each kernel's largest launch in the phase are captured, held to the
+   plain version and measured in the fresh process of phase 7;
 7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
    all 99 TPC-DS queries (``tpcds.queries.RUNS``, windows and GROUPING
    SETS among them) run through ``run_sql`` (one warm-up, then 3 timed
@@ -83,14 +97,15 @@ non-zero without printing a result):
    slices of lineitem) on Q1, Q6 and the ``STREAMED`` statements (a
    BIGINT sum that launches ``masked_sum``, ``approx_distinct`` by
    return flag, 15,000,000 groups by order key, a split-pruned orders
-   query reading at most 3 slices), each equal to numpy over the same
+   query and one pruned by a decimal bound on the key, each reading at
+   most 3 slices), each equal to numpy over the same
    generated host tables (``np_tpch_oracle``), nothing of the table
    cached; then Q1 on the resident path (bounded ingest of the same
    slices), equal too, and the streamed Q1's peak must stay under half
    the resident scan's bytes.  Launch counts of both paths are read
    around their runs;
-10. a ``kernels`` JSON line (launches by path: tpch, tpcds, server, tiers,
-    streamed), then the card line, then the result line
+10. a ``kernels`` JSON line (launches by path: tpch, scalars, tpcds,
+    server, tiers, streamed), then the card line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -100,6 +115,7 @@ no ``presto_tpu_torch`` package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -444,6 +460,99 @@ def measure_like(torch, runner, NO) -> dict:
         call_ms=call_ms(torch, fns)["like"],
         device_ms=device_ms(torch, fns)["like"],
         bound_ms=(n * w + 5 * n) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+# ---------------------------------------------------------------- scalars
+
+SCALARS_TIMED_RUNS = 3
+SCALARS_REL = 1e-12  # DOUBLE sums of transcendental functions vs math.fsum
+
+
+def record_largest(torch, kernel: str, best: dict):
+    """A recorder for ``kernel`` (``CK.set_sum_recorder`` or
+    ``CK.set_probe_recorder``) that keeps in ``best`` copies of the inputs
+    of its launch with the most rows (values summed, or probes), as the
+    path gave them."""
+    def record(*inputs):
+        n = inputs[1 if kernel == "sorted_probe" else 0].shape[0]
+        if n > best.get("n", -1):
+            best.update(n=n, inputs=[
+                x.clone() if isinstance(x, torch.Tensor)
+                else torch.tensor(int(x), device="cuda") for x in inputs])
+    return record
+
+
+def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
+    """Phase 6b (see the module docstring): the ``NO.SCALARS`` statements
+    on phase 4's SF1 runner, each run equal to its numpy oracle; one line
+    per statement.  The launch counts are reset just before the first run
+    and read just after the last; the inputs of each kernel's largest
+    launch in the warm-up runs are captured for ``measure_apart``.
+    Returns the launches and the captured inputs."""
+    t_phase = time.perf_counter()
+    want = NO.scalars(NO.Tables(runner.datasource))
+    largest = {"masked_sum": {}, "sorted_probe": {}}
+
+    def check(name, table):
+        got = {c: col.to_pylist() for c, col in table.columns.items()}
+        w = want[name]
+        if name in NO.SCALARS_DOUBLE:
+            ok = got.keys() == w.keys() and all(
+                len(got[c]) == 1 and abs(got[c][0] - w[c][0])
+                <= SCALARS_REL * abs(w[c][0]) for c in w)
+        else:
+            ok = got == w
+        if not ok:
+            raise AssertionError(f"scalars {name}: {got} != oracle {w}")
+
+    def warm_up(name, sql):
+        """One run with the recorders on; a launch larger than any before
+        is kept with the statement's name."""
+        sizes = {k: v.get("n", -1) for k, v in largest.items()}
+        found = {k: {} for k in largest}
+        CK.set_sum_recorder(record_largest(torch, "masked_sum",
+                                           found["masked_sum"]))
+        CK.set_probe_recorder(record_largest(torch, "sorted_probe",
+                                             found["sorted_probe"]))
+        try:
+            check(name, runner.run_sql(sql))
+        finally:
+            CK.set_sum_recorder(None)
+            CK.set_probe_recorder(None)
+        for k, f in found.items():
+            if f.get("n", -1) > sizes[k]:
+                largest[k] = dict(f, statement=name)
+
+    CK.reset_launches()
+    for name, sql in NO.SCALARS.items():
+        before = dict(CK.LAUNCHES)
+        warm_up(name, sql)
+        runs = []
+        for _ in range(SCALARS_TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = runner.run_sql(sql)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            check(name, table)
+        per_run = {k: (CK.LAUNCHES[k] - before[k]) // (1 + SCALARS_TIMED_RUNS)
+                   for k in CK.LAUNCHES}
+        say("scalars_statement", name=name, sf=SF,
+            warm_ms_median=statistics.median(runs), warm_ms=runs,
+            host_syncs=runner.last_host_syncs, launches_per_run=per_run,
+            result=want[name] if len(str(want[name])) < 300 else None,
+            equals_oracle=True, card=card)
+    launches = dict(CK.LAUNCHES)
+    for k, v in launches.items():
+        if v <= 0 or "inputs" not in largest[k]:
+            raise AssertionError(f"the scalars phase launched no {k}")
+    say("scalars_done", statements=len(NO.SCALARS), launches=launches,
+        largest={k: {"statement": v["statement"], "rows": v["n"]}
+                 for k, v in largest.items()},
+        seconds=round(time.perf_counter() - t_phase, 3))
+    return {"launches": launches, "captured": {
+        f"scalars_largest_{v['statement']}": (k, v["inputs"])
+        for k, v in largest.items()}}
 
 
 # ---------------------------------------------------------------- tpcds
@@ -901,19 +1010,10 @@ def server_writes(torch, CK, NO, conn, cli, t, card: str) -> dict:
         the most rows (values summed, or probes) are kept as
         ``captured[name]``, copied as the path gave them."""
         best = {}
-
-        def record(*inputs):
-            n = inputs[1 if kernel == "sorted_probe" else 0].shape[0]
-            if n > best.get("n", -1):
-                best.update(n=n, inputs=[
-                    x.clone() if isinstance(x, torch.Tensor)
-                    else torch.tensor(int(x), device="cuda")
-                    for x in inputs])
-
         setter = {"masked_sum": CK.set_sum_recorder,
                   "sorted_probe": CK.set_probe_recorder}[kernel]
         before = CK.LAUNCHES[kernel]
-        setter(record)
+        setter(record_largest(torch, kernel, best))
         try:
             got = cli.execute(sql)
         finally:
@@ -989,6 +1089,7 @@ STREAM_SF = 10.0
 STREAM_SLICE = 1 << 20     # order units per slice: 15 slices of lineitem
 STREAM_SLICES = 15
 PRUNED_KEYS = (1_000_000, 2_000_000)
+PRUNED_DECIMAL = "59999000.5"  # within the last slice of SF10's orders
 STREAMED = {
     "bigint_sum": "select sum(l_orderkey) s, count(*) c from lineitem",
     "approx_distinct": "select l_returnflag, approx_distinct(l_partkey) a "
@@ -999,7 +1100,10 @@ STREAMED = {
     "pruned": "select o_orderpriority, count(*) c, sum(o_totalprice) s "
               "from orders where o_orderkey between "
               f"{PRUNED_KEYS[0]} and {PRUNED_KEYS[1]} "
-              "group by o_orderpriority order by o_orderpriority"}
+              "group by o_orderpriority order by o_orderpriority",
+    # a decimal bound on the BIGINT key: pruning rounds it up to a key
+    "pruned_decimal": "select count(*) c, sum(o_custkey) s from orders "
+                      f"where o_orderkey >= {PRUNED_DECIMAL}"}
 
 
 def peak_start(torch) -> int:
@@ -1158,12 +1262,15 @@ def stream_oracle(path: str, sf: str, lo: str, hi: str) -> int:
     t.preload("lineitem", ("l_orderkey", "l_partkey", "l_quantity",
                            "l_extendedprice", "l_discount", "l_tax",
                            "l_returnflag", "l_linestatus", "l_shipdate"))
-    t.preload("orders", ("o_orderkey", "o_orderpriority", "o_totalprice"))
+    t.preload("orders", ("o_orderkey", "o_orderpriority", "o_totalprice",
+                         "o_custkey"))
     want = {"q1": NO.q1(t), "q6": NO.q6(t),
             "bigint_sum": NO.lineitem_sum(t),
             "approx_distinct": NO.approx_distinct_partkey(t),
             "high_ndv": NO.orderkey_groups(t),
-            "pruned": NO.orders_in_keys(t, int(lo), int(hi))}
+            "pruned": NO.orders_in_keys(t, int(lo), int(hi)),
+            "pruned_decimal": NO.orders_from_key(
+                t, math.floor(float(PRUNED_DECIMAL)) + 1)}
     with open(path, "wb") as f:
         pickle.dump(want, f)
     return 0
@@ -1260,10 +1367,10 @@ def tiers_streamed(torch, CK, card: str) -> dict:
         if not run["streamed"] or run["cached"]:
             raise AssertionError(f"streamed {name}: streamed "
                                  f"{run['streamed']}, cached {run['cached']}")
-        if name != "pruned" and run["slices"] != STREAM_SLICES:
+        if not name.startswith("pruned") and run["slices"] != STREAM_SLICES:
             raise AssertionError(f"streamed {name}: {run['slices']} slices")
-        if name == "pruned" and run["slices"] > 3:
-            raise AssertionError(f"pruned: {run['slices']} slices read")
+        if name.startswith("pruned") and run["slices"] > 3:
+            raise AssertionError(f"{name}: {run['slices']} slices read")
         if name == "bigint_sum" and run["launches"]["masked_sum"] <= 0:
             raise AssertionError("the streamed BIGINT sum launched no "
                                  "masked_sum")
@@ -1394,12 +1501,14 @@ def main() -> int:
         say("measure", kernel="sorted_probe", **s)
         shapes["sorted_probe"].append(s)
     say("like", **measure_like(torch, runner, NO))
+    scalars = scalars_phase(torch, CK, NO, runner, card)
     tpcds = tpcds_phase(torch, CK)
     server = server_phase(torch, CK, NO, requests, want, card)
     tiers = tiers_phase(torch, CK, NO, runner, requests, want, free, card)
-    # the TPC-DS, server and tier paths' largest launches, each held to
-    # its plain version and measured in a fresh process
-    for shape in measure_apart(torch, {**tpcds["captured"],
+    # the scalars, TPC-DS, server and tier paths' largest launches, each
+    # held to its plain version and measured in a fresh process
+    for shape in measure_apart(torch, {**scalars["captured"],
+                                       **tpcds["captured"],
                                        **server["captured"],
                                        **tiers["captured"]}):
         say("measure", **shape)
@@ -1408,6 +1517,7 @@ def main() -> int:
     for name in sorted(CK.SOURCES):
         s = shapes[name][0]  # the main path's shape
         by_path = {"tpch": launches[name],
+                   "scalars": scalars["launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

@@ -1,5 +1,6 @@
 """Expression IR → tensor operations (the slice of ``presto_tpu/exec/
-expreval.py`` that the 22 TPC-H queries and 77 TPC-DS queries reach).
+expreval.py`` that the TPC-H and TPC-DS queries and the reference's
+scalar batteries reach).
 
 Evaluation is eager: each IR node becomes a few torch operations on the
 chunk's device.  Layout-aware as in the reference engine:
@@ -18,16 +19,19 @@ Null semantics: every value carries optional validity; comparisons are
 null-poisoning; AND/OR are 3-valued; filters drop null predicates; a
 typed NULL literal is a column of its type's layout with no valid row.
 
-Not ported yet (they raise ``NotImplementedError``): scalar functions
-other than abs, round, coalesce, upper, concat and date_add; nested
-types; LIKE with '_' on a BYTES column; ordered compares of BYTES
-columns; IN over other than dictionary, BYTES, integer and date columns;
-casts other than among numeric types and among string types; zoned
-timestamps.
+IN lists compare typed literals in the column's own units (a decimal
+literal at the column's scale; one it cannot hold matches nothing).  The
+math and bitwise scalars are elementwise torch in float64 and int64.
+
+Not ported yet (they raise ``NotImplementedError``): the string, date
+and array scalar functions; nested types; LIKE with '_' on a BYTES
+column; ordered compares of BYTES columns; casts other than among
+numeric types and among string types; zoned timestamps.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -270,25 +274,72 @@ def _pad_bytes(v: torch.Tensor, w: int) -> torch.Tensor:
 
 def _in_list(expr: ir.InList, chunk: Chunk) -> DCol:
     """``x IN (literals)``: a dictionary predicate, or an OR of equalities
-    (byte strings, integers, dates)."""
+    compared in the column's own units, as ``=`` compares (a literal the
+    column's type cannot hold matches nothing: the JAX package compares
+    unscaled values).  A NULL in the list makes every row that matches no
+    value NULL, so ``NOT IN (..., NULL)`` keeps no row."""
     col = eval_expr(expr.arg, chunk)
+    lits = [v for v in expr.values if v.value is not None]
+    dev = col.values.device
+    none = torch.zeros((chunk.n_rows,), dtype=torch.bool, device=dev)
     if col.kind == DICT:
-        vals = set(expr.values)
+        vals = {v.value for v in lits if isinstance(v.value, str)}
         m = _dict_predicate(col, lambda s: s in vals)
     elif col.kind == BYTES:
-        m = torch.zeros((chunk.n_rows,), dtype=torch.bool,
-                        device=col.values.device)
-        for v in expr.values:
-            m = m | S.eq_literal(col.values, col.lengths, v)
-    elif col.kind == PLAIN and col.values.dim() == 1 and (
-            T.is_integral(col.dtype) or isinstance(col.dtype, T.DateType)):
-        m = torch.zeros((chunk.n_rows,), dtype=torch.bool,
-                        device=col.values.device)
-        for v in expr.values:
-            m = m | (col.values == int(v))
+        m = none
+        for v in lits:
+            m = m | S.eq_literal(col.values, col.lengths, v.value)
+    elif col.kind == PLAIN and isinstance(col.dtype, T.DoubleType):
+        m = none
+        for v in lits:
+            m = m | (col.values == _literal_double(v))
+    elif col.kind == PLAIN and isinstance(col.dtype, T.BooleanType):
+        m = none
+        for v in lits:
+            m = m | (col.values == bool(v.value))
+    elif col.kind == PLAIN:
+        m = none
+        for v in lits:
+            x = ir.in_column_units(v, col.dtype)
+            if x is None:
+                raise NotImplementedError(
+                    f"IN over a {col.dtype} column with a {v.dtype} value")
+            if x.denominator != 1:
+                continue  # not a value of the column's type
+            m = m | _eq_int(col, int(x))
     else:
         raise NotImplementedError(f"IN over a {col.kind} {col.dtype} column")
-    return DCol(T.BOOLEAN, PLAIN, m, validity=col.validity)
+    validity = col.validity
+    if len(lits) < len(expr.values):
+        validity = _and_validity(validity, m)
+    return DCol(T.BOOLEAN, PLAIN, m, validity=validity)
+
+
+def _literal_double(v: ir.Literal) -> float:
+    """A numeric literal as float64 (a decimal's value, not its unscaled
+    integer)."""
+    if T.is_decimal(v.dtype):
+        return int(v.value) / 10 ** v.dtype.scale
+    return float(v.value)
+
+
+def _eq_int(col: DCol, x: int) -> torch.Tensor:
+    """``col == x`` for an integer, date or decimal column and an integer
+    in its units; a long decimal compares (hi, lo) words, and a value
+    outside the column's storage matches nothing."""
+    if _is_i128(col):
+        if not -2**127 <= x < 2**127:
+            return torch.zeros((col.n_rows,), dtype=torch.bool,
+                               device=col.values.device)
+        hi, lo = I128.unpack(col.values)
+        lw = x % (1 << 64)
+        return (hi == (x >> 64)) & (lo == (lw - (1 << 64) if lw >= 1 << 63
+                                           else lw))
+    info = torch.iinfo(col.values.dtype)
+    if not info.min <= x <= info.max:
+        return torch.zeros((col.n_rows,), dtype=torch.bool,
+                           device=col.values.device)
+    return col.values == x
 
 
 def _fdiv(a, b):
@@ -339,10 +390,13 @@ def _to_days(col: DCol) -> torch.Tensor:
 
 
 def _eval_func(expr: ir.Func, chunk: Chunk) -> DCol:
-    """Scalar functions (reference: ``operator/scalar/``): ``abs``,
-    ``round``, ``coalesce``, ``upper``, ``concat`` and ``date_add``; any
-    other raises ``NotImplementedError`` with its name."""
+    """Scalar functions (reference: ``operator/scalar/``): those of
+    ``_FUNCS`` over their evaluated arguments, and the argument-less ones
+    of ``_NULLARY`` over the chunk's rows; any other raises
+    ``NotImplementedError`` with its name."""
     name = expr.name
+    if name in _NULLARY:
+        return _NULLARY[name](expr, chunk)
     if name not in _FUNCS:
         raise NotImplementedError(f"scalar function {name}")
     return _FUNCS[name](expr, [eval_expr(a, chunk) for a in expr.args])
@@ -415,16 +469,36 @@ def _or_validity(vs) -> Optional[torch.Tensor]:
     return out
 
 
-def _upper(expr, args) -> DCol:
+def _upper_lower(expr, args) -> DCol:
+    """``upper`` / ``lower`` of ASCII letters: a DICT column through its
+    host dictionary, a BYTES column on the device."""
+    (a,) = args
+    up = expr.name == "upper"
+    if a.kind == DICT:
+        return _string_transform(a, str.upper if up else str.lower, a.dtype)
+    if a.kind != BYTES:
+        raise NotImplementedError(f"{expr.name} of a {a.kind} column")
+    v = a.values
+    first, delta = ("a", -32) if up else ("A", 32)
+    hit = (v >= ord(first)) & (v <= ord(first) + 25)
+    return DCol(a.dtype, BYTES, torch.where(hit, v + delta, v), a.lengths,
+                a.validity)
+
+
+def _length(expr, args) -> DCol:
+    """Characters of a string: a DICT column's lengths from its host
+    dictionary, gathered by code; a BYTES column's lengths."""
     (a,) = args
     if a.kind == DICT:
-        return _string_transform(a, str.upper, a.dtype)
-    if a.kind != BYTES:
-        raise NotImplementedError(f"upper of a {a.kind} column")
-    v = a.values
-    lower = (v >= ord("a")) & (v <= ord("z"))
-    return DCol(a.dtype, BYTES, torch.where(lower, v - 32, v), a.lengths,
-                a.validity)
+        lens = np.array([len(str(x)) for x in a.dictionary.strings],
+                        dtype=np.int64)
+        v = torch.from_numpy(lens).to(a.values.device)[
+            a.values.to(torch.int64)]
+    elif a.kind == BYTES:
+        v = a.lengths.to(torch.int64)
+    else:
+        raise NotImplementedError(f"length of a {a.kind} column")
+    return DCol(T.BIGINT, PLAIN, v, validity=a.validity)
 
 
 def _concat(expr, args) -> DCol:
@@ -470,9 +544,334 @@ def _date_add(expr, args) -> DCol:
                 validity=_and_validity(args[1].validity, a.validity))
 
 
-_FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
-          "upper": _upper, "concat": _concat, "date_add": _date_add}
+def _mod(expr, args) -> DCol:
+    """mod(a, b), truncated toward zero as Java's ``%`` is: integers give
+    a BIGINT; decimals are taken at the larger scale (the planner types
+    the result as Trino does); DOUBLE is ``fmod``.  A zero divisor gives
+    NULL, as the JAX package's validity does (which also takes a
+    decimal's unscaled value and types the result BIGINT)."""
+    a, b = args
+    rt = expr.dtype
+    if isinstance(rt, T.DoubleType):
+        x, y = as_double(a), as_double(b)
+        nz = y != 0
+        v = torch.fmod(x, torch.where(nz, y, 1.0))
+    elif _is_i128(a) or _is_i128(b) or T.is_long_decimal(rt):
+        s = _scale_of(rt)
+        nh, nl = _col_i128(a, s)
+        dh, dl = _col_i128(b, s)
+        nz = ~I128.eq(dh, dl, torch.zeros_like(dh), torch.zeros_like(dl))
+        _, _, rh, rl = I128.udivmod(*I128.abs128(nh, nl), *I128.abs128(
+            dh, torch.where(nz, dl, 1)))
+        mh, ml = I128.neg(rh, rl)
+        rh, rl = torch.where(nh < 0, mh, rh), torch.where(nh < 0, ml, rl)
+        v = I128.pack(rh, rl) if T.is_long_decimal(rt) else rl
+    else:
+        s = _scale_of(rt)
+        x = D.rescale(a.values.to(torch.int64), _scale_of(a.dtype), s)
+        y = D.rescale(b.values.to(torch.int64), _scale_of(b.dtype), s)
+        nz = y != 0
+        v = torch.fmod(x, torch.where(nz, y, 1))
+    return DCol(rt, PLAIN, v,
+                validity=_and_validity(a.validity, b.validity, nz))
 
+
+def _greatest_least(expr, args) -> DCol:
+    """``greatest`` / ``least`` in the result's type: DOUBLE as float64,
+    decimals at the result's scale (long ones as (hi, lo) words),
+    integers and dates as they are.  NULL where any argument is (the
+    JAX package rescales every argument as int64, DOUBLE too)."""
+    rt = expr.dtype
+    big = expr.name == "greatest"
+    valid = _and_validity(*(a.validity for a in args))
+    if isinstance(rt, T.DoubleType):
+        out = as_double(args[0])
+        for a in args[1:]:
+            out = (torch.maximum if big else torch.minimum)(out, as_double(a))
+        return DCol(rt, PLAIN, out, validity=valid)
+    if not (T.is_decimal(rt) or T.is_integral(rt)
+            or isinstance(rt, T.DateType)):
+        raise NotImplementedError(f"{expr.name} of {rt}")
+    s = _scale_of(rt)
+    if T.is_long_decimal(rt) or any(_is_i128(a) for a in args):
+        hi, lo = _col_i128(args[0], s)
+        for a in args[1:]:
+            h, l = _col_i128(a, s)
+            take = I128.lt(hi, lo, h, l) if big else I128.lt(h, l, hi, lo)
+            hi, lo = torch.where(take, h, hi), torch.where(take, l, lo)
+        out = I128.pack(hi, lo) if T.is_long_decimal(rt) else lo
+        return DCol(rt, PLAIN, out, validity=valid)
+    out = D.rescale(args[0].values.to(torch.int64), _scale_of(args[0].dtype),
+                    s)
+    for a in args[1:]:
+        v = D.rescale(a.values.to(torch.int64), _scale_of(a.dtype), s)
+        out = torch.maximum(out, v) if big else torch.minimum(out, v)
+    if isinstance(rt, T.DateType):
+        out = out.to(torch.int32)
+    return DCol(rt, PLAIN, out, validity=valid)
+
+
+# ------------------------------------------------ math and bitwise scalars
+# (reference: ``MathFunctions.java``, ``BitwiseFunctions.java``; the JAX
+# package's ``_eval_math_func``): elementwise torch, no kernel of their own
+
+def _double_fn(f, dtype=T.DOUBLE):
+    """A one-argument function of a number's float64 value (a DOUBLE, or
+    a BOOLEAN for the ``is_nan`` family)."""
+    def run(expr, args) -> DCol:
+        (a,) = args
+        return DCol(dtype, PLAIN, f(as_double(a)), validity=a.validity)
+    return run
+
+
+def _double_fn2(f):
+    """A two-argument function of two numbers' float64 values."""
+    def run(expr, args) -> DCol:
+        a, b = args
+        return DCol(T.DOUBLE, PLAIN, f(as_double(a), as_double(b)),
+                    validity=_and_validity(a.validity, b.validity))
+    return run
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Cube root (torch has none): ``|x| ** (1/3)`` with x's sign, then one
+    Newton step, which brings it within an ulp or two of the correctly
+    rounded root; 0, infinities and NaN pass through."""
+    y = torch.sign(x) * x.abs().pow(1.0 / 3.0)
+    ok = (y != 0) & torch.isfinite(y)
+    y2 = torch.where(ok, y * y, 1.0)
+    return torch.where(ok, y - (y * y2 - x) / (3.0 * y2), y)
+
+
+def _sqrt(expr, args) -> DCol:
+    """Square root; NULL for a negative value (the JAX package's rule;
+    Trino returns NaN)."""
+    (a,) = args
+    v = as_double(a)
+    ok = v >= 0
+    return DCol(T.DOUBLE, PLAIN, torch.sqrt(torch.where(ok, v, 0.0)),
+                validity=_and_validity(a.validity, ok))
+
+
+_LOGS = {"ln": torch.log, "log10": torch.log10, "log2": torch.log2}
+
+
+def _log(expr, args) -> DCol:
+    """``ln``, ``log10``, ``log2`` and ``log(base, x)``; NULL where x or
+    the base is not positive, or the base is 1 (the JAX package's rule;
+    Trino returns NaN or -Infinity)."""
+    if expr.name == "log":
+        b, a = args
+        vb, va = as_double(b), as_double(a)
+        ok = (va > 0) & (vb > 0) & (vb != 1.0)
+        out = torch.log(torch.where(va > 0, va, 1.0)) \
+            / torch.log(torch.where(ok, vb, 2.0))
+        return DCol(T.DOUBLE, PLAIN, out,
+                    validity=_and_validity(a.validity, b.validity, ok))
+    (a,) = args
+    v = as_double(a)
+    return DCol(T.DOUBLE, PLAIN, _LOGS[expr.name](torch.where(v > 0, v, 1.0)),
+                validity=_and_validity(a.validity, v > 0))
+
+
+def _ceil_floor(expr, args) -> DCol:
+    """``ceil`` / ``ceiling`` / ``floor``: a DOUBLE stays DOUBLE, a
+    decimal becomes ``decimal(p, 0)`` (its unscaled value divided by
+    10^s, rounded up or down), an integer is itself."""
+    (a,) = args
+    up = expr.name != "floor"
+    if isinstance(a.dtype, T.DoubleType):
+        f = torch.ceil if up else torch.floor
+        return DCol(T.DOUBLE, PLAIN, f(a.values), validity=a.validity)
+    s = _scale_of(a.dtype)
+    if _is_i128(a):
+        # HALF_UP to scale 0, then one step where that went the wrong way
+        hi, lo = I128.unpack(a.values)
+        qh, ql = I128.rescale(hi, lo, s, 0)
+        bh, bl = I128.rescale(qh, ql, 0, s)
+        fix = I128.lt(bh, bl, hi, lo) if up else I128.lt(hi, lo, bh, bl)
+        step = torch.where(fix, 1 if up else -1, 0)
+        qh, ql = I128.add(qh, ql, step >> 63, step)
+        v = I128.pack(qh, ql) if T.is_long_decimal(expr.dtype) else ql
+        return DCol(expr.dtype, PLAIN, v, validity=a.validity)
+    v = a.values.to(torch.int64)
+    if s:
+        p = 10 ** s
+        v = _fdiv(v + (p - 1), p) if up else _fdiv(v, p)
+    return DCol(expr.dtype, PLAIN, v, validity=a.validity)
+
+
+def _sign(expr, args) -> DCol:
+    """-1, 0 or 1 in the planner's type (DOUBLE, ``decimal(1, 0)`` or
+    BIGINT); a DOUBLE NaN stays NaN (``torch.sign`` gives 0)."""
+    (a,) = args
+    if isinstance(a.dtype, T.DoubleType):
+        x = a.values
+        return DCol(T.DOUBLE, PLAIN, torch.where(torch.isnan(x), x,
+                                                 torch.sign(x)),
+                    validity=a.validity)
+    if _is_i128(a):
+        hi, lo = I128.unpack(a.values)
+        v = torch.where(hi < 0, -1, ((hi != 0) | (lo != 0)).to(torch.int64))
+    else:
+        v = torch.sign(a.values.to(torch.int64))
+    return DCol(expr.dtype, PLAIN, v, validity=a.validity)
+
+
+def _width_bucket(expr, args) -> DCol:
+    """width_bucket(x, lo, hi, k): the 1-based bucket of x among k equal
+    buckets of [lo, hi), 0 below and k + 1 above (the JAX package's
+    arithmetic)."""
+    x, lo, hi, k = (as_double(a) for a in args)
+    frac = (x - lo) / torch.where(hi != lo, hi - lo, 1.0)
+    b = torch.clamp(torch.floor(frac * k).to(torch.int64) + 1, min=0)
+    b = torch.minimum(b, k.to(torch.int64) + 1)
+    return DCol(T.BIGINT, PLAIN, b,
+                validity=_and_validity(*(a.validity for a in args)))
+
+
+def _i64(a: DCol) -> torch.Tensor:
+    return a.values.to(torch.int64)
+
+
+_BITWISE = {"bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
+            "bitwise_xor": torch.bitwise_xor}
+
+
+def _bitwise2(expr, args) -> DCol:
+    a, b = args
+    return DCol(T.BIGINT, PLAIN, _BITWISE[expr.name](_i64(a), _i64(b)),
+                validity=_and_validity(a.validity, b.validity))
+
+
+def _bitwise_not(expr, args) -> DCol:
+    (a,) = args
+    return DCol(T.BIGINT, PLAIN, ~_i64(a), validity=a.validity)
+
+
+def popcount64(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64's 64-bit pattern (torch has no popcount):
+    the SWAR sum of bit pairs, nibbles and bytes.  Each mask clears the
+    sign bit before anything reads it, so the arithmetic right shifts act
+    as logical ones, and the byte sums' product wraps as uint64 would."""
+    v = v - ((v >> 1) & 0x5555555555555555)
+    v = (v & 0x3333333333333333) + ((v >> 2) & 0x3333333333333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (v * 0x0101010101010101) >> 56
+
+
+def _bit_count(expr, args) -> DCol:
+    """bit_count(x[, bits]): set bits of x's two's complement in ``bits``
+    bits (a literal, 64 by default)."""
+    a = args[0]
+    bits = 64
+    if len(args) > 1:
+        if not isinstance(expr.args[1], ir.Literal):
+            raise NotImplementedError("bit_count with a non-literal width")
+        bits = int(expr.args[1].value)
+    v = _i64(a)
+    if bits < 64:
+        v = v & ((1 << bits) - 1)
+    return DCol(T.BIGINT, PLAIN, popcount64(v), validity=a.validity)
+
+
+def _shift(expr, args) -> DCol:
+    """The three shifts of a BIGINT, the count clamped to 0-63 as in the
+    JAX package.  The logical right shift moves one place and clears the
+    sign bit, after which the arithmetic shift fills with zeros."""
+    a, b = args
+    v = _i64(a)
+    k = _i64(b).clamp(0, 63)
+    if expr.name == "bitwise_left_shift":
+        out = v << k
+    elif expr.name == "bitwise_right_shift_arithmetic":
+        out = v >> k
+    else:
+        out = torch.where(k == 0, v, ((v >> 1) & (2**63 - 1))
+                          >> (k - 1).clamp_min(0))
+    return DCol(T.BIGINT, PLAIN, out,
+                validity=_and_validity(a.validity, b.validity))
+
+
+# ------------------------------------------------ row-numbering functions
+
+ROW_NUMBERING = ("unique_id", "uuid")
+
+
+def refuse_row_numbering(exprs, where: str) -> None:
+    """Raise ``NotImplementedError`` when one of ``exprs`` calls a
+    row-numbering function: evaluated over each of several chunks (the
+    slices of a streamed scan, the partitions of an operator), it would
+    number every chunk's rows from 0 again."""
+    for x in exprs:
+        for e in ir.walk(x):
+            if isinstance(e, ir.Func) and e.name in ROW_NUMBERING:
+                raise NotImplementedError(f"{e.name}() under {where}")
+
+
+def _unique_id(expr, chunk: Chunk) -> DCol:
+    """An int64 unique across the chunk's rows: the row ordinal, as the
+    JAX package numbers each chunk (its shard in the high bits)."""
+    return DCol(T.BIGINT, PLAIN, torch.arange(
+        chunk.n_rows, dtype=torch.int64, device=chunk.mask.device))
+
+
+def _uuid(expr, chunk: Chunk) -> DCol:
+    """A version-4-shaped UUID string per row from the JAX package's
+    deterministic splitmix64 stream over the row ordinal (the same
+    strings as the JAX package); a DICT column of the host-formatted
+    strings."""
+    from ..tpcds.generator import _mix
+    rows = np.arange(chunk.n_rows, dtype=np.uint64)
+    strs = []
+    for h, l in zip(_mix(rows, 0x75756964).tolist(),
+                    _mix(rows, 0x75756932).tolist()):
+        x = f"{h:016x}{l:016x}"
+        strs.append(f"{x[:8]}-{x[8:12]}-4{x[13:16]}-a{x[17:20]}-{x[20:32]}")
+    uniq, codes = np.unique(np.array(strs, dtype=str), return_inverse=True)
+    return DCol(expr.dtype, DICT,
+                torch.from_numpy(codes.astype(np.int32)).to(chunk.mask.device),
+                dictionary=Dictionary(uniq.astype(object)))
+
+
+def _constant(c: float):
+    def run(expr, chunk: Chunk) -> DCol:
+        return DCol(T.DOUBLE, PLAIN, torch.full(
+            (chunk.n_rows,), c, dtype=torch.float64, device=chunk.mask.device))
+    return run
+
+
+_FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
+          "upper": _upper_lower, "lower": _upper_lower, "length": _length,
+          "concat": _concat, "date_add": _date_add, "mod": _mod,
+          "greatest": _greatest_least, "least": _greatest_least,
+          "sqrt": _sqrt, "cbrt": _double_fn(cbrt),
+          "exp": _double_fn(torch.exp), "sin": _double_fn(torch.sin),
+          "cos": _double_fn(torch.cos), "tan": _double_fn(torch.tan),
+          "asin": _double_fn(torch.asin), "acos": _double_fn(torch.acos),
+          "atan": _double_fn(torch.atan), "sinh": _double_fn(torch.sinh),
+          "cosh": _double_fn(torch.cosh), "tanh": _double_fn(torch.tanh),
+          "degrees": _double_fn(torch.rad2deg),
+          "radians": _double_fn(torch.deg2rad),
+          "truncate": _double_fn(torch.trunc),
+          "ln": _log, "log10": _log, "log2": _log, "log": _log,
+          "power": _double_fn2(torch.pow), "pow": _double_fn2(torch.pow),
+          "atan2": _double_fn2(torch.atan2),
+          "ceil": _ceil_floor, "ceiling": _ceil_floor, "floor": _ceil_floor,
+          "sign": _sign, "width_bucket": _width_bucket,
+          "is_nan": _double_fn(torch.isnan, T.BOOLEAN),
+          "is_finite": _double_fn(torch.isfinite, T.BOOLEAN),
+          "is_infinite": _double_fn(torch.isinf, T.BOOLEAN),
+          "bitwise_and": _bitwise2, "bitwise_or": _bitwise2,
+          "bitwise_xor": _bitwise2, "bitwise_not": _bitwise_not,
+          "bit_count": _bit_count, "bitwise_left_shift": _shift,
+          "bitwise_right_shift": _shift,
+          "bitwise_right_shift_arithmetic": _shift}
+
+# functions of no argument, evaluated over the chunk's rows
+_NULLARY = {"unique_id": _unique_id, "uuid": _uuid,
+            "pi": _constant(math.pi), "e": _constant(math.e),
+            "infinity": _constant(math.inf), "nan": _constant(math.nan)}
 
 def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
     """Searched CASE over integer, date, decimal and DOUBLE branches

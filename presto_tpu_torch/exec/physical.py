@@ -84,7 +84,7 @@ from ..ops import window as W
 from ..utils.memory import chunk_bytes, col_bytes
 from .columns import Chunk, DCol
 from .expreval import (_pad_bytes, _rank_in, as_double, dcol_to_bytes,
-                       eval_expr, eval_predicate)
+                       eval_expr, eval_predicate, refuse_row_numbering)
 from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
                    PhysGroupId, PhysHashAggregate, PhysHashJoin, PhysLimit,
                    PhysMaterial, PhysOp, PhysProject, PhysScalarBind,
@@ -338,6 +338,32 @@ def _insert(chunk: Chunk, exprs, capacity: int):
 
 # ---------------------------------------------------------------- sort
 
+def dict_order(c: DCol) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rank of each code, code of each rank) of a DICT column: where its
+    dictionary's strings fall in sorted order, as host-built tables on
+    the column's device."""
+    order = np.argsort(np.array([str(x) for x in c.dictionary.strings],
+                                dtype=str), kind="stable").astype(np.int64)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    if order.shape[0] == 0:
+        order = np.zeros(1, np.int64)
+    dev = c.values.device
+    return torch.from_numpy(rank).to(dev), torch.from_numpy(order).to(dev)
+
+
+def dict_extreme(c: DCol, reduce, validity, dtype) -> DCol:
+    """min or max of a DICT column by string value: each code's rank in
+    the sorted dictionary, reduced by ``reduce`` (ranks → the best rank
+    of each output row), then mapped back to its code (the JAX package
+    reduces the codes themselves)."""
+    rank, code = dict_order(c)
+    best = reduce(rank[c.values.to(torch.int64)])
+    codes = code[best.clamp(0, code.shape[0] - 1)].to(c.values.dtype)
+    return DCol(dtype, DICT, codes, validity=validity,
+                dictionary=c.dictionary)
+
+
 def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
     """Sort-key exprs → (integer tensor, descending) pairs; a BYTES key
     gives one pair per 8-byte pack, a long decimal two (``sort_keys``).
@@ -353,10 +379,7 @@ def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
             packs = I128.sort_keys(*I128.unpack(c.values))
         elif c.kind == DICT:
             # order by string value: host-computed rank of each code
-            rank = np.argsort(np.argsort(
-                [str(s) for s in c.dictionary.strings], kind="stable"))
-            packs = [torch.from_numpy(rank).to(c.values.device)[
-                c.values.to(torch.int64)]]
+            packs = [dict_order(c)[0][c.values.to(torch.int64)]]
         elif c.values.is_floating_point():
             packs = [SORT.f64_sort_key(c.values)]
         else:
@@ -425,6 +448,7 @@ def _exec_sort_partitioned(plan: PhysSort, child: Chunk, ctx: ExecContext,
     alone, concatenated in order (the reference spills sorted runs and
     merges them, ``operator/OrderByOperator.java`` +
     ``util/MergeSortedPages``; range partitions need no merge)."""
+    refuse_row_numbering([e for e, _ in plan.keys], "a partitioned sort")
     part = _sort_partition_ids(child, plan.keys, k)
     ctx.spill_partitions += k
     outs = [_sort(sub, plan.keys) for sub in
@@ -730,6 +754,9 @@ def _exec_agg_partitioned(plan: PhysHashAggregate, child: Chunk,
     partitions' results concatenate with no merge (the reference's
     ``SpillableHashAggregationBuilder`` spills by group hash and merges;
     here the merge is designed away)."""
+    refuse_row_numbering([e for _, e in plan.groups]
+                         + [x for s in plan.aggs for x in (s.arg, s.arg2)
+                            if x is not None], "a partitioned aggregation")
     part = _hash_partition(_group_key_arrays(
         child, tuple(e for _, e in plan.groups)), k)
     ctx.spill_partitions += k
@@ -865,6 +892,11 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         widx = A.seg_min(ridx, slot, vmask, capacity)
         nonempty = A.seg_count(slot, vmask, capacity) > 0
         return c.take(widx.clamp(max=max(n - 1, 0)), valid=gvalid & nonempty)
+    if spec.func in ("min", "max") and c.kind == DICT:
+        f = A.seg_min if spec.func == "min" else A.seg_max
+        return dict_extreme(c, lambda r: f(r, slot, vmask, capacity),
+                            gvalid & (A.seg_count(slot, vmask, capacity) > 0),
+                            ot)
     if spec.func in ("min", "max") and c.kind == PLAIN \
             and vals.dtype != torch.bool:
         valid = gvalid & (A.seg_count(slot, vmask, capacity) > 0)
@@ -902,6 +934,11 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
             regs = HLL.global_state(HASH.hash_keys(_col_keys(c)), m)
             out[spec.name] = DCol(T.BIGINT, PLAIN,
                                   HLL.estimate(regs).reshape(1))
+            continue
+        if spec.func in ("min", "max") and c.kind == DICT:
+            f = A.g_min if spec.func == "min" else A.g_max
+            out[spec.name] = dict_extreme(c, lambda r: f(r, m).reshape(1),
+                                          nonempty, ot)
             continue
         if c.kind != PLAIN or c.values.dtype == torch.bool:
             raise NotImplementedError(
@@ -974,6 +1011,9 @@ def _exec_join_partitioned(plan: PhysHashJoin, probe: Chunk, build: Chunk,
     results concatenate with no merge; a partition with no probe row
     gives none of them a row, nor one with no build row an inner or semi
     join."""
+    refuse_row_numbering(plan.probe_keys + plan.build_keys
+                         + ((plan.filter,) if plan.filter is not None
+                            else ()), "a partitioned join")
     pk, bk = _join_key_arrays(plan, probe, build)
     probes = _partition_rows(probe, _hash_partition(pk, k), k, ctx)
     builds = _partition_rows(build, _hash_partition(bk, k), k, ctx)

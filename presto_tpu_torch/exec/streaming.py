@@ -25,17 +25,19 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import PLAIN
+from ..data.column import DICT, PLAIN
 from ..ops import hashtable as HT
 from ..ops import int128 as I128
 from ..parallel import distributed as D
 from ..sql import ir
 from ..sql.planner import domains as DOM
 from . import physical as PH
-from .columns import Chunk, DCol
+from .columns import Chunk, DCol, Dictionary
+from .expreval import refuse_row_numbering
 from .plan import (AggSpec, PhysFilter, PhysHashAggregate, PhysLimit,
                    PhysMaterial, PhysOp, PhysProject, PhysScan, PhysSort,
                    _agg_output_type)
@@ -117,6 +119,20 @@ def pruned_unit_range(agg_child: PhysOp, scan: PhysScan,
     return lo, max(hi - lo, 0)
 
 
+def _evaluated(agg: PhysHashAggregate) -> List[ir.Expr]:
+    """The expressions evaluated over each slice: the aggregation's and
+    those of the Filter/Project chain below it."""
+    out = [e for _, e in agg.groups] + [x for s in agg.aggs
+                                        for x in (s.arg, s.arg2)
+                                        if x is not None]
+    node = agg.child
+    while isinstance(node, (PhysFilter, PhysProject)):
+        out += ([node.predicate] if isinstance(node, PhysFilter)
+                else [e for _, e in node.projections])
+        node = node.child
+    return out
+
+
 def _substitute_scan(node: PhysOp, chunk: Chunk) -> PhysOp:
     """A copy of the Filter/Project chain ``node`` over ``chunk``."""
     if isinstance(node, PhysScan):
@@ -162,6 +178,7 @@ def run_streaming_agg(ds, plan: PhysOp, ctx: PH.ExecContext,
         # a provably empty domain: one unit still goes through the real
         # filter, so that empty aggregates come out as they should
         lo, cnt = 0, min(total, 1)
+    refuse_row_numbering(_evaluated(agg), "a streamed scan")
     slices = _slices(ds, scan, lo, lo + cnt, max(int(slice_rows), 1))
     if not agg.groups:
         return _stream_global(above, agg, slices, ctx)
@@ -181,7 +198,37 @@ def run_streaming_agg(ds, plan: PhysOp, ctx: PH.ExecContext,
 
 
 def _cat(chunks: List[Chunk]) -> Chunk:
-    return chunks[0] if len(chunks) == 1 else PH.concat_chunks(chunks)
+    """The slices' partial rows in one chunk; a string column that is
+    DICT in every slice stays DICT over the union of their dictionaries,
+    so that a min/max state still merges by string."""
+    if len(chunks) == 1:
+        return chunks[0]
+    cols = [dict(ch.cols) for ch in chunks]
+    for name in chunks[0].cols:
+        parts = [c[name] for c in cols]
+        if all(p.kind == DICT for p in parts) and any(
+                p.dictionary is not parts[0].dictionary for p in parts):
+            for c, p in zip(cols, _one_dictionary(parts)):
+                c[name] = p
+    return PH.concat_chunks([Chunk(c, ch.mask)
+                             for c, ch in zip(cols, chunks)])
+
+
+def _one_dictionary(parts: List[DCol]) -> List[DCol]:
+    """DICT columns recoded over the sorted union of their dictionaries
+    (host tables; dictionaries are small)."""
+    union = np.unique(np.concatenate([
+        np.asarray(p.dictionary.strings, dtype=str) for p in parts]))
+    shared = Dictionary(union.astype(object))
+    out = []
+    for p in parts:
+        remap = torch.from_numpy(np.searchsorted(union, np.asarray(
+            p.dictionary.strings, dtype=str)).astype(np.int32)).to(
+                p.values.device)
+        codes = remap[p.values.to(torch.int64)] if remap.numel() else p.values
+        out.append(DCol(p.dtype, DICT, codes, validity=p.validity,
+                        dictionary=shared))
+    return out
 
 
 def _capacity(ctx, chunk: Chunk, hint: int) -> int:

@@ -6,7 +6,8 @@ Torch port of the aggregation-state half of
 reference's accumulator INTERMEDIATE states
 (``operator/aggregation/AccumulatorCompiler.java``).  A PARTIAL step
 groups one input and keeps, per group, a state that merges exactly: a
-count and a sum add, min and max take their extreme, ``arbitrary`` keeps
+count and a sum add, min and max take their extreme (of a string: by
+its rank in the dictionary the slices share), ``arbitrary`` keeps
 its first row, the variance family keeps its moment sums and
 ``approx_distinct`` its HLL registers (merged by an elementwise max).  A
 FINAL step groups the partial rows again, merges each state and
@@ -28,7 +29,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..data import types as T
-from ..data.column import PLAIN
+from ..data.column import DICT, PLAIN
 from ..exec import physical as PH
 from ..exec.columns import Chunk, DCol
 from ..exec.expreval import as_double, eval_expr
@@ -91,6 +92,15 @@ def merge_state(sfunc: str, c: DCol, partials: Chunk, slot, capacity: int,
         return c.take(widx.clamp(max=max(partials.n_rows - 1, 0)),
                       valid=gvalid & nonempty)
     v = c.values
+    if c.kind == DICT:
+        # min/max states of strings merge by string: the partial rows'
+        # ranks in their (shared) dictionary
+        f = A.seg_min if sfunc == "min" else A.seg_max
+        return PH.dict_extreme(c, lambda r: f(r, slot, m, capacity),
+                               gvalid & nonempty, c.dtype)
+    if c.kind != PLAIN:
+        raise NotImplementedError(
+            f"merge of {sfunc} states in a {c.kind} column")
     if sfunc == "hll":
         out = HLL.seg_merge(v, slot, m, capacity)
     elif sfunc == "sum":
@@ -163,6 +173,11 @@ def _partial_states(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid):
         return [(f"{spec.name}#arb", "arb",
                  c.take(widx.clamp(max=max(chunk.n_rows - 1, 0)),
                         valid=gvalid & (cnt > 0)))]
+    if spec.func in ("min", "max") and c.kind == DICT:
+        f = A.seg_min if spec.func == "min" else A.seg_max
+        return [(f"{spec.name}#{spec.func}", spec.func, PH.dict_extreme(
+            c, lambda r: f(r, slot, vmask, capacity), gvalid & (cnt > 0),
+            c.dtype))]
     vals = c.values
     if c.kind != PLAIN or vals.dtype == torch.bool:
         raise NotImplementedError(
@@ -227,7 +242,8 @@ def _finalize_agg(spec: AggSpec, merged: Dict[str, DCol], gvalid) -> DCol:
             cnt >= (1 if spec.func.endswith("_pop") else 2)))
     if spec.func in ("min", "max"):
         c = merged[f"{name}#{spec.func}"]
-        return DCol(ot, PLAIN, c.values, validity=c.validity)
+        return DCol(ot, c.kind, c.values, validity=c.validity,
+                    dictionary=c.dictionary)
     s = merged[f"{name}#sum"]
     if spec.func == "sum":
         return DCol(ot, PLAIN, s.values, validity=s.validity)

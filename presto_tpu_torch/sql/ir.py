@@ -16,6 +16,7 @@ HALF_UP.  Literals carry unscaled int64 values for decimal/date types.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from fractions import Fraction
 from typing import List, Optional, Sequence, Tuple
 
 from ..data import types as T
@@ -159,8 +160,10 @@ class Like(Expr):
 
 @dataclass(frozen=True)
 class InList(Expr):
+    """``arg IN (values)``: each value a typed literal, so that a decimal
+    keeps its scale and a NULL is known as one."""
     arg: Expr
-    values: Tuple[object, ...]  # literal values (python)
+    values: Tuple[Literal, ...]
 
     def children(self):
         return (self.arg,)
@@ -357,6 +360,49 @@ def lit_date(days: int) -> Literal:
 
 def lit_string(s: str) -> Literal:
     return Literal(s, T.varchar(len(s)))
+
+
+def in_column_units(lit: Literal, to: T.DataType) -> Optional[Fraction]:
+    """A non-NULL literal's value in the units a column of type ``to``
+    stores: a decimal's unscaled integer at the column's scale, an
+    integer, days of a date, micros of a timestamp.  Exact, so it is not
+    an integer where the column cannot hold the value (``1.5`` for a
+    BIGINT column).  None where the units are unknown: a NULL, a string
+    or a boolean, a DOUBLE literal or column, or a date or timestamp
+    against a column of another type (a DOUBLE literal would compare in
+    float64, as ``=`` does, not exactly)."""
+    t, v = lit.dtype, lit.value
+    if v is None or isinstance(v, (str, bool)):
+        return None
+    timed = (T.DateType, T.TimestampType)
+    if isinstance(to, timed) or isinstance(t, timed):
+        return Fraction(int(v)) if isinstance(t, timed) \
+            and type(t) is type(to) else None
+    if not (T.is_integral(to) or T.is_decimal(to)):
+        return None
+    if not (T.is_integral(t) or T.is_decimal(t)):
+        return None
+    x = Fraction(int(v), 10 ** (t.scale if T.is_decimal(t) else 0))
+    return x * 10 ** (to.scale if T.is_decimal(to) else 0)
+
+
+def literal_text(lit: Literal) -> str:
+    """A literal as SQL writes it: a decimal with its point (``1.5``, not
+    its unscaled ``15``), a string quoted, a date ISO, NULL."""
+    t, v = lit.dtype, lit.value
+    if v is None:
+        return "NULL"
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    if T.is_decimal(t) and t.scale:
+        sign, digits = ("-" if v < 0 else ""), str(abs(int(v)))
+        digits = digits.rjust(t.scale + 1, "0")
+        return f"{sign}{digits[:-t.scale]}.{digits[-t.scale:]}"
+    if isinstance(t, T.DateType):
+        import datetime as dt
+        return "DATE '" + (dt.date(1970, 1, 1)
+                           + dt.timedelta(days=int(v))).isoformat() + "'"
+    return repr(v)
 
 
 def walk(expr: Expr):

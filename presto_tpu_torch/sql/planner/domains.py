@@ -16,7 +16,9 @@ Used for:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Dict, Optional, Tuple
 
 from .. import ir
@@ -24,11 +26,12 @@ from .. import ir
 
 @dataclass(frozen=True)
 class Domain:
-    """Allowed values of one column: [lo, hi] interval ∧ optional discrete
-    set.  None bound = unbounded.  ``none`` marks a provably-empty domain."""
+    """Allowed values of one column, in the units it stores (a decimal's
+    unscaled integers): [lo, hi] interval ∧ optional discrete set.  None
+    bound = unbounded.  ``none`` marks a provably-empty domain."""
 
-    lo: Optional[float] = None          # inclusive
-    hi: Optional[float] = None          # inclusive
+    lo: Optional[int] = None            # inclusive
+    hi: Optional[int] = None            # inclusive
     in_set: Optional[frozenset] = None  # discrete allowed values
     none: bool = False                  # contradiction (e.g. x<1 and x>2)
 
@@ -66,10 +69,30 @@ class Domain:
 ALL = Domain()
 
 
-def _lit(e: ir.Expr):
-    if isinstance(e, ir.Literal) and isinstance(e.value, (int, float)):
-        return e.value
+def _units(e: ir.Expr, col: ir.ColumnRef) -> Optional[Fraction]:
+    """A literal's value in ``col``'s units (``ir.in_column_units``);
+    None for anything else, or where those units are unknown."""
+    if isinstance(e, ir.Literal):
+        return ir.in_column_units(e, col.dtype)
     return None
+
+
+def _bound(op: str, x: Fraction) -> Domain:
+    """``col op x`` as a domain of the column's integer units: a lower
+    bound rounds up, an upper bound rounds down, and ``=`` with a value
+    the column cannot hold is empty."""
+    if op == "=":
+        if x.denominator != 1:
+            return Domain(none=True)
+        v = int(x)
+        return Domain(v, v, frozenset([v]))
+    if op == "<":
+        return Domain(hi=math.ceil(x) - 1)
+    if op == "<=":
+        return Domain(hi=math.floor(x))
+    if op == ">":
+        return Domain(lo=math.floor(x) + 1)
+    return Domain(lo=math.ceil(x))  # >=
 
 
 def extract(pred: Optional[ir.Expr]) -> Dict[str, Domain]:
@@ -97,34 +120,29 @@ def extract(pred: Optional[ir.Expr]) -> Dict[str, Domain]:
             out[col] = d
         return out
     if isinstance(pred, ir.Compare) and isinstance(pred.left, ir.ColumnRef):
-        v = _lit(pred.right)
-        if v is None:
+        x = _units(pred.right, pred.left)
+        if x is None or pred.op not in ("=", "<", "<=", ">", ">="):
             return {}
-        col = pred.left.name
-        return {
-            "=": {col: Domain(v, v, frozenset([v]))},
-            "<": {col: Domain(hi=v - 1 if isinstance(v, int) else v)},
-            "<=": {col: Domain(hi=v)},
-            ">": {col: Domain(lo=v + 1 if isinstance(v, int) else v)},
-            ">=": {col: Domain(lo=v)},
-        }.get(pred.op, {})
+        return {pred.left.name: _bound(pred.op, x)}
     if isinstance(pred, ir.Compare) and isinstance(pred.right, ir.ColumnRef):
-        v = _lit(pred.left)
-        if v is None:
-            return {}
         flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
         if pred.op not in flip:
             return {}
         return extract(ir.Compare(flip[pred.op], pred.right, pred.left))
     if isinstance(pred, ir.Between) and isinstance(pred.arg, ir.ColumnRef):
-        lo, hi = _lit(pred.lo), _lit(pred.hi)
+        lo, hi = _units(pred.lo, pred.arg), _units(pred.hi, pred.arg)
         if lo is None or hi is None:
             return {}
-        return {pred.arg.name: Domain(lo, hi)}
+        return {pred.arg.name: _bound(">=", lo).intersect(_bound("<=", hi))}
     if isinstance(pred, ir.InList) and isinstance(pred.arg, ir.ColumnRef):
-        vals = [v for v in pred.values if isinstance(v, (int, float))]
-        if len(vals) != len(pred.values) or not vals:
+        # a NULL in the list matches no row: only the other values count
+        xs = [_units(v, pred.arg) for v in pred.values
+              if v.value is not None]
+        if not xs or any(x is None for x in xs):
             return {}
+        vals = [int(x) for x in xs if x.denominator == 1]
+        if not vals:
+            return {pred.arg.name: Domain(none=True)}
         return {pred.arg.name: Domain(min(vals), max(vals),
                                       frozenset(vals))}
     return {}

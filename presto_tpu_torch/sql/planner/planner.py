@@ -169,6 +169,20 @@ class Rel:
 
 # ---------------------------------------------------------------- planner
 
+def _mod_type(a: T.DataType, b: T.DataType) -> T.DataType:
+    """mod's result type as Trino types it: BIGINT of integers, DOUBLE
+    beside a DOUBLE, else ``decimal(min(p1 - s1, p2 - s2) + max(s1, s2),
+    max(s1, s2))``, an integer taken as ``decimal(19, 0)``."""
+    if isinstance(a, T.DoubleType) or isinstance(b, T.DoubleType):
+        return T.DOUBLE
+    if not (T.is_decimal(a) or T.is_decimal(b)):
+        return T.BIGINT
+    da, db = (t if T.is_decimal(t) else T.decimal(19, 0) for t in (a, b))
+    s = max(da.scale, db.scale)
+    return T.decimal(min(min(da.precision - da.scale,
+                             db.precision - db.scale) + s, 38), s)
+
+
 class Planner:
     def __init__(self, scale_factor: float, extra_tables=None,
                  extra_stats=None, warnings=None):
@@ -777,7 +791,7 @@ class Planner:
             for v in node.values:
                 rv = self._resolve(v, scope, outer)
                 assert isinstance(rv, ir.Literal), "IN list must be literals"
-                vals.append(rv.value)
+                vals.append(rv)
             e = ir.InList(self._resolve(node.arg, scope, outer), tuple(vals))
             return ir.Not(e) if node.negated else e
         if isinstance(node, ast.CaseExpr):
@@ -911,10 +925,17 @@ class Planner:
             # until a CAST(... AS ROW(a t, ...)) names them
             return ir.RowValue(tuple((f"f{i}", e)
                                      for i, e in enumerate(args)))
-        if name in ("abs", "upper", "lower", "nullif"):
+        if name in ("abs", "upper", "lower"):
             return ir.Func(name, args, args[0].dtype)
+        if name == "nullif":
+            # CASE WHEN a = b THEN NULL ELSE a END: nullif compares as
+            # ``=`` does, strings and DOUBLE included
+            a, b = args
+            return ir.Case(((ir.Compare("=", a, b),
+                             ir.Literal(None, a.dtype)),), a, a.dtype)
         if name == "mod":
-            return ir.Func(name, args, T.BIGINT)
+            return ir.Func(name, args, _mod_type(args[0].dtype,
+                                                 args[1].dtype))
         if name == "unique_id":
             return ir.Func(name, args, T.BIGINT)
         if name == "length":

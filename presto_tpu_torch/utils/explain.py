@@ -35,7 +35,8 @@ def _expr_str(e: ir.Expr) -> str:
         return (f"{_expr_str(e.arg)} {'NOT ' if e.negated else ''}"
                 f"LIKE '{e.pattern}'")
     if isinstance(e, ir.InList):
-        return f"{_expr_str(e.arg)} IN {e.values}"
+        return (f"{_expr_str(e.arg)} IN ("
+                + ", ".join(ir.literal_text(v) for v in e.values) + ")")
     if isinstance(e, ir.Between):
         return (f"{_expr_str(e.arg)} BETWEEN {_expr_str(e.lo)} "
                 f"AND {_expr_str(e.hi)}")

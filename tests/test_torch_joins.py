@@ -282,8 +282,9 @@ def test_q18_lower_threshold_returns_rows(port, ref):
 # constructs no TPC-H query reaches, which stay unported
 UNPORTED = {
     "sum_distinct": "select sum(distinct n_regionkey) as s from nation",
-    "scalar_function_mod": "select mod(n_nationkey, 3) as x from nation",
-    "scalar_function_sqrt": "select sqrt(n_nationkey) as x from nation",
+    "scalar_function_reverse": "select reverse(n_name) as x from nation",
+    "approx_percentile": "select approx_percentile(n_nationkey, 0.5) as p "
+                         "from nation",
     "bytes_like_underscore": "select count(*) as c from orders "
                              "where o_comment like '%special_requests%'",
 }
@@ -488,7 +489,7 @@ def test_grouped_min_max_of_dates_and_dictionaries(port):
     """Grouped min/max of int32 values (dates) give each group's true
     extreme (the JAX package's start value wraps in an int32 array: see
     ``test_seg_extremes_int32_keep_their_values``); over a dictionary
-    column the port refuses, as the reference reduces codes, not strings."""
+    column they are by string (the reference reduces codes)."""
     got = _cols(port.run_sql(
         "select o_orderpriority, min(o_orderdate) mn, max(o_orderdate) mx "
         "from orders group by o_orderpriority order by o_orderpriority"))
@@ -497,10 +498,14 @@ def test_grouped_min_max_of_dates_and_dictionaries(port):
         mn=("o_orderdate", "min"), mx=("o_orderdate", "max"))
     assert got == {"o_orderpriority": list(g.index),
                    **{c: [int(x) for x in g[c]] for c in ("mn", "mx")}}
-    for f in ("min", "max"):
-        with pytest.raises(NotImplementedError, match="dict"):
-            port.run_sql(f"select o_orderpriority, {f}(o_orderstatus) s "
-                         "from orders group by o_orderpriority")
+    got = _cols(port.run_sql(
+        "select o_orderpriority, min(o_orderstatus) mn, "
+        "max(o_orderstatus) mx from orders group by o_orderpriority "
+        "order by o_orderpriority"))
+    g = o.groupby("o_orderpriority").agg(
+        mn=("o_orderstatus", "min"), mx=("o_orderstatus", "max"))
+    assert got == {"o_orderpriority": list(g.index),
+                   **{c: list(g[c]) for c in ("mn", "mx")}}
 
 
 def _concat_parts(rng, sizes_widths, d):

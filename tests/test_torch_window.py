@@ -317,8 +317,8 @@ WINDOW_SQL = {
       count(*) over (partition by o_custkey order by o_orderpriority
          groups between current row and 1 following) g2
     from orders where o_custkey <= 30 order by o_orderkey""",
-    # ``nullif(x, 0)`` of the original written as a CASE: the port has
-    # no ``nullif`` yet
+    # ``nullif(x, 0)`` of the original, written as the CASE the port's
+    # planner rewrites it to
     "ignore_nulls": """
     select o_orderkey,
       lag(case when o_shippriority = 0 then null else o_shippriority end)

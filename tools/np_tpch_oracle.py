@@ -22,6 +22,7 @@ hash and HLL registers); ``tests/test_torch_joins.py`` holds it to
 from __future__ import annotations
 
 import datetime as dt
+import math
 
 import numpy as np
 
@@ -749,6 +750,114 @@ def orders_by_price(t: Tables) -> dict:
     k, p = t.v("orders", "o_orderkey"), t.v("orders", "o_totalprice")
     order = np.lexsort((k, -p))
     return {"o_orderkey": k[order], "o_totalprice": p[order]}
+
+
+def orders_from_key(t: Tables, lo: int) -> dict:
+    """count(*), sum(o_custkey) of the orders with o_orderkey >= lo."""
+    m = t.v("orders", "o_orderkey") >= lo
+    return {"c": [int(m.sum())],
+            "s": [exact_sum(t.v("orders", "o_custkey")[m])]}
+
+
+# ------------------------------------------------------ scalar statements
+
+SCALARS = {
+    "in_decimal": "select sum(l_extendedprice) s, count(*) c from lineitem "
+                  "where l_discount in (0.05, 0.06)",
+    "not_in_null": "select o_orderstatus, count(*) c from orders "
+                   "where o_orderpriority not in ('1-URGENT', null) "
+                   "or o_orderstatus = 'F' group by o_orderstatus "
+                   "order by o_orderstatus",
+    "mod": "select sum(mod(o_orderkey, 7)) s, sum(mod(o_totalprice, 100)) t "
+           "from orders",
+    "nullif": "select count(nullif(o_orderpriority, '1-URGENT')) a, "
+              "count(nullif(o_shippriority, 0)) b from orders",
+    "greatest_least": "select sum(greatest(l_quantity, 10)) g, "
+                      "sum(least(l_tax, l_discount)) l from lineitem",
+    "dict_length_lower": "select lower(l_shipmode) m, "
+                         "sum(length(l_shipmode)) n, count(*) c "
+                         "from lineitem group by lower(l_shipmode) order by m",
+    "bytes_length_lower": "select count(*) c, sum(length(c_name)) n "
+                          "from customer "
+                          "where lower(c_name) like 'customer#0000001%'",
+    "dict_min_max": "select l_returnflag, min(l_shipmode) a, "
+                    "max(l_shipmode) b, min(l_shipinstruct) c, "
+                    "max(l_shipinstruct) d from lineitem "
+                    "group by l_returnflag order by l_returnflag",
+    "math_agg": "select sum(sqrt(l_quantity)) q, sum(ln(l_extendedprice)) e "
+                "from lineitem",
+    "bitwise_sum": "select sum(bitwise_and(o_orderkey, 255)) s from orders",
+    "in_join": "select count(*) c, sum(l_quantity) q from lineitem, orders "
+               "where l_orderkey = o_orderkey and o_orderstatus = 'F' "
+               "and l_discount in (0.01, 0.10)",
+    "unique_id": "select count(distinct unique_id()) c, count(*) n "
+                 "from lineitem",
+}
+# DOUBLE results, held to 1e-12 relative: the oracle sums exactly
+# (``math.fsum``), the engine in its own order
+SCALARS_DOUBLE = ("math_agg",)
+
+
+def _by_code(col, codes: np.ndarray, f) -> dict:
+    """{string: f(rows of that string)} over a dictionary column's codes."""
+    return {str(col.dictionary[c]): f(codes == c) for c in np.unique(codes)}
+
+
+def scalars(t: Tables) -> dict:
+    """The ``SCALARS`` statements' results: decimals unscaled, integers
+    exact, the DOUBLE sums by ``math.fsum``."""
+    li, od, cu = "lineitem", "orders", "customer"
+    disc = t.v(li, "l_discount")
+    ep, qty, tax = (t.v(li, c) for c in ("l_extendedprice", "l_quantity",
+                                         "l_tax"))
+    okey, price = t.v(od, "o_orderkey"), t.v(od, "o_totalprice")
+    out = {}
+    m = (disc == 5) | (disc == 6)
+    out["in_decimal"] = {"s": [exact_sum(ep[m])], "c": [int(m.sum())]}
+    status = t.col(od, "o_orderstatus")
+    st = np.array([str(x) for x in status.dictionary])[
+        np.asarray(status.values)]
+    out["not_in_null"] = {"o_orderstatus": ["F"],
+                          "c": [int((st == "F").sum())]}
+    out["mod"] = {"s": [exact_sum(okey % 7)], "t": [exact_sum(price % 10000)]}
+    urgent = t.where(od, "o_orderpriority", lambda x: x == "1-URGENT")
+    out["nullif"] = {"a": [int((~urgent).sum())],
+                     "b": [int((t.v(od, "o_shippriority") != 0).sum())]}
+    out["greatest_least"] = {"g": [exact_sum(np.maximum(qty, 1000))],
+                             "l": [exact_sum(np.minimum(tax, disc))]}
+    mode = t.col(li, "l_shipmode")
+    mcodes = np.asarray(mode.values)
+    cnt = _by_code(mode, mcodes, lambda r: int(r.sum()))
+    low = sorted(cnt, key=str.lower)
+    out["dict_length_lower"] = {"m": [x.lower() for x in low],
+                                "n": [len(x) * cnt[x] for x in low],
+                                "c": [cnt[x] for x in low]}
+    names = t.s(cu, "c_name")
+    hit = [x for x in names if x.lower().startswith("customer#0000001")]
+    out["bytes_length_lower"] = {"c": [len(hit)],
+                                 "n": [sum(len(x) for x in hit)]}
+    rf = t.col(li, "l_returnflag")
+    flags = np.array([str(x) for x in rf.dictionary])[np.asarray(rf.values)]
+    modes = np.array([str(x) for x in mode.dictionary])[mcodes]
+    instr = t.col(li, "l_shipinstruct")
+    ins = np.array([str(x) for x in instr.dictionary])[
+        np.asarray(instr.values)]
+    keys = sorted(set(flags.tolist()))
+    out["dict_min_max"] = {
+        "l_returnflag": keys,
+        "a": [min(set(modes[flags == k].tolist())) for k in keys],
+        "b": [max(set(modes[flags == k].tolist())) for k in keys],
+        "c": [min(set(ins[flags == k].tolist())) for k in keys],
+        "d": [max(set(ins[flags == k].tolist())) for k in keys]}
+    out["math_agg"] = {"q": [math.fsum(np.sqrt(qty / 100.0))],
+                       "e": [math.fsum(np.log(ep / 100.0))]}
+    out["bitwise_sum"] = {"s": [exact_sum(okey & 255)]}
+    row, found = lookup(okey, t.v(li, "l_orderkey"))
+    m = found & (st[row] == "F") & ((disc == 1) | (disc == 10))
+    out["in_join"] = {"c": [int(m.sum())], "q": [exact_sum(qty[m])]}
+    n = int(ep.shape[0])
+    out["unique_id"] = {"c": [n], "n": [n]}
+    return out
 
 
 def oracle(ds, names=tuple(QUERIES)) -> dict:
