@@ -50,6 +50,21 @@ non-zero without printing a result):
    read just after, and both kernels must launch in it; the inputs of
    each kernel's largest launch in the phase are captured, held to the
    plain version and measured in the fresh process of phase 7;
+6c. strings_dates: the same runner and tables take the ``STRINGS_DATES``
+   statements of ``tools/np_tpch_oracle.py`` the same way (one warm-up
+   and 3 timed runs each, every run equal to its numpy/Python oracle,
+   one ``strings_dates_statement`` line each, launches reset at the
+   phase's start, both kernels required, each one's largest launch
+   captured): byte-matrix trim, ``strpos``, ``reverse``, ``rpad``,
+   ``starts_with``/``ends_with`` and ``codepoint`` over lineitem's
+   comments and the customers, ``regexp_like``/``regexp_extract`` over
+   the part names (decoded on the host), ``split_part`` (a NULL past the
+   last field) and ``to_hex`` of dictionary columns, ``quarter``,
+   ``day_of_week``, ``date_diff`` over the lineitem ⋈ orders join (its
+   negative month and week spans truncated toward zero, as Trino's),
+   ``date_format`` of ``date_trunc``, ISO weeks, ``date_add`` against
+   ``last_day_of_month`` and zoned timestamps (the hour in the zone, the
+   instant kept);
 7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
    all 99 TPC-DS queries (``tpcds.queries.RUNS``, windows and GROUPING
    SETS among them) run through ``run_sql`` (one warm-up, then 3 timed
@@ -104,8 +119,9 @@ non-zero without printing a result):
    slices), equal too, and the streamed Q1's peak must stay under half
    the resident scan's bytes.  Launch counts of both paths are read
    around their runs;
-10. a ``kernels`` JSON line (launches by path: tpch, scalars, tpcds,
-    server, tiers, streamed), then the card line, then the result line
+10. a ``kernels`` JSON line (launches by path: tpch, scalars,
+    strings_dates, tpcds, server, tiers, streamed), then the card line,
+    then the result line
     ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and in a directory that holds
@@ -482,28 +498,31 @@ def record_largest(torch, kernel: str, best: dict):
     return record
 
 
-def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
-    """Phase 6b (see the module docstring): the ``NO.SCALARS`` statements
-    on phase 4's SF1 runner, each run equal to its numpy oracle; one line
-    per statement.  The launch counts are reset just before the first run
-    and read just after the last; the inputs of each kernel's largest
-    launch in the warm-up runs are captured for ``measure_apart``.
-    Returns the launches and the captured inputs."""
+def statements_phase(torch, CK, runner, card: str, label: str,
+                     statements: dict, oracle, doubles=()) -> dict:
+    """Phases 6b and 6c (see the module docstring): ``statements`` on
+    phase 4's SF1 runner, each run equal to ``oracle()``'s result (the
+    ``doubles`` to SCALARS_REL of it); one ``<label>_statement`` line per
+    statement.  The launch counts are reset just before the first run and
+    read just after the last, and both kernels must launch; the inputs of
+    each kernel's largest launch in the warm-up runs are captured for
+    ``measure_apart``.  Returns the launches and the captured inputs."""
     t_phase = time.perf_counter()
-    want = NO.scalars(NO.Tables(runner.datasource))
+    want = oracle()
+    oracle_s = time.perf_counter() - t_phase
     largest = {"masked_sum": {}, "sorted_probe": {}}
 
     def check(name, table):
         got = {c: col.to_pylist() for c, col in table.columns.items()}
         w = want[name]
-        if name in NO.SCALARS_DOUBLE:
+        if name in doubles:
             ok = got.keys() == w.keys() and all(
                 len(got[c]) == 1 and abs(got[c][0] - w[c][0])
                 <= SCALARS_REL * abs(w[c][0]) for c in w)
         else:
             ok = got == w
         if not ok:
-            raise AssertionError(f"scalars {name}: {got} != oracle {w}")
+            raise AssertionError(f"{label} {name}: {got} != oracle {w}")
 
     def warm_up(name, sql):
         """One run with the recorders on; a launch larger than any before
@@ -524,7 +543,7 @@ def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
                 largest[k] = dict(f, statement=name)
 
     CK.reset_launches()
-    for name, sql in NO.SCALARS.items():
+    for name, sql in statements.items():
         before = dict(CK.LAUNCHES)
         warm_up(name, sql)
         runs = []
@@ -537,7 +556,7 @@ def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
             check(name, table)
         per_run = {k: (CK.LAUNCHES[k] - before[k]) // (1 + SCALARS_TIMED_RUNS)
                    for k in CK.LAUNCHES}
-        say("scalars_statement", name=name, sf=SF,
+        say(f"{label}_statement", name=name, sf=SF,
             warm_ms_median=statistics.median(runs), warm_ms=runs,
             host_syncs=runner.last_host_syncs, launches_per_run=per_run,
             result=want[name] if len(str(want[name])) < 300 else None,
@@ -545,14 +564,29 @@ def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
     launches = dict(CK.LAUNCHES)
     for k, v in launches.items():
         if v <= 0 or "inputs" not in largest[k]:
-            raise AssertionError(f"the scalars phase launched no {k}")
-    say("scalars_done", statements=len(NO.SCALARS), launches=launches,
+            raise AssertionError(f"the {label} phase launched no {k}")
+    say(f"{label}_done", statements=len(statements), launches=launches,
         largest={k: {"statement": v["statement"], "rows": v["n"]}
                  for k, v in largest.items()},
+        oracle_seconds=round(oracle_s, 3),
         seconds=round(time.perf_counter() - t_phase, 3))
     return {"launches": launches, "captured": {
-        f"scalars_largest_{v['statement']}": (k, v["inputs"])
+        f"{label}_largest_{v['statement']}": (k, v["inputs"])
         for k, v in largest.items()}}
+
+
+def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
+    """Phase 6b: the ``NO.SCALARS`` statements."""
+    return statements_phase(
+        torch, CK, runner, card, "scalars", NO.SCALARS,
+        lambda: NO.scalars(NO.Tables(runner.datasource)), NO.SCALARS_DOUBLE)
+
+
+def strings_dates_phase(torch, CK, NO, runner, card: str) -> dict:
+    """Phase 6c: the ``NO.STRINGS_DATES`` statements."""
+    return statements_phase(
+        torch, CK, runner, card, "strings_dates", NO.STRINGS_DATES,
+        lambda: NO.strings_dates(NO.Tables(runner.datasource)))
 
 
 # ---------------------------------------------------------------- tpcds
@@ -1502,12 +1536,15 @@ def main() -> int:
         shapes["sorted_probe"].append(s)
     say("like", **measure_like(torch, runner, NO))
     scalars = scalars_phase(torch, CK, NO, runner, card)
+    strings_dates = strings_dates_phase(torch, CK, NO, runner, card)
     tpcds = tpcds_phase(torch, CK)
     server = server_phase(torch, CK, NO, requests, want, card)
     tiers = tiers_phase(torch, CK, NO, runner, requests, want, free, card)
-    # the scalars, TPC-DS, server and tier paths' largest launches, each
-    # held to its plain version and measured in a fresh process
+    # the scalars, strings and dates, TPC-DS, server and tier paths'
+    # largest launches, each held to its plain version and measured in a
+    # fresh process
     for shape in measure_apart(torch, {**scalars["captured"],
+                                       **strings_dates["captured"],
                                        **tpcds["captured"],
                                        **server["captured"],
                                        **tiers["captured"]}):
@@ -1518,6 +1555,7 @@ def main() -> int:
         s = shapes[name][0]  # the main path's shape
         by_path = {"tpch": launches[name],
                    "scalars": scalars["launches"][name],
+                   "strings_dates": strings_dates["launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

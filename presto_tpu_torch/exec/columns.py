@@ -48,6 +48,9 @@ class DCol:
     lengths: Optional[torch.Tensor] = None   # BYTES
     validity: Optional[torch.Tensor] = None  # bool [N]; None = all valid
     dictionary: Optional[Dictionary] = None  # DICT
+    # TIMESTAMP WITH TIME ZONE: int32 minutes east of UTC per row (values
+    # hold the UTC instant in int64 micros)
+    values2: Optional[torch.Tensor] = None
 
     @property
     def n_rows(self) -> int:
@@ -69,7 +72,8 @@ class DCol:
             v = valid if v is None else (v & valid)
         return DCol(self.dtype, self.kind, self.values[i],
                     None if self.lengths is None else self.lengths[i],
-                    v, self.dictionary)
+                    v, self.dictionary,
+                    None if self.values2 is None else self.values2[i])
 
 
 @dataclass
@@ -118,7 +122,9 @@ def from_host(col: Column, device) -> DCol:
         # table's column) → (hi, lo) words
         from ..ops.int128 import from_host_ints
         values = from_host_ints(values)
-    return DCol(col.dtype, PLAIN, _dev(values, device), None, validity)
+    values2 = None if col.values2 is None else _dev(col.values2, device)
+    return DCol(col.dtype, PLAIN, _dev(values, device), None, validity,
+                values2=values2)
 
 
 def to_host(col: DCol, sel: np.ndarray) -> Column:
@@ -136,6 +142,9 @@ def to_host(col: DCol, sel: np.ndarray) -> Column:
         # long decimal (hi, lo) words → exact python ints
         from ..ops.int128 import to_host_ints
         return Column(col.dtype, to_host_ints(vals), validity, PLAIN)
+    if col.values2 is not None:  # a zoned timestamp's offsets
+        return Column(col.dtype, vals, validity, PLAIN,
+                      values2=col.values2.cpu().numpy()[sel])
     return Column(col.dtype, vals, validity, PLAIN)
 
 
@@ -153,12 +162,13 @@ def _port_type(t):
 
 def dcol_from_arrays(other, device) -> DCol:
     """Another engine's device column (duck-typed: ``dtype``, ``kind``,
-    ``values``, ``lengths``, ``validity``, ``dictionary`` with array-like
-    members) → this package's DCol on ``device``, through numpy.  Feeds
-    both engines identical inputs in the tests."""
+    ``values``, ``lengths``, ``validity``, ``dictionary``, ``values2``
+    with array-like members) → this package's DCol on ``device``, through
+    numpy.  Feeds both engines identical inputs in the tests."""
     def arr(a):
         return None if a is None else _dev(np.asarray(a), device)
     d = None if other.dictionary is None else \
         Dictionary(other.dictionary.strings)
     return DCol(_port_type(other.dtype), other.kind, arr(other.values),
-                arr(other.lengths), arr(other.validity), d)
+                arr(other.lengths), arr(other.validity), d,
+                arr(getattr(other, "values2", None)))

@@ -22,17 +22,26 @@ typed NULL literal is a column of its type's layout with no valid row.
 IN lists compare typed literals in the column's own units (a decimal
 literal at the column's scale; one it cannot hold matches nothing).  The
 math and bitwise scalars are elementwise torch in float64 and int64.
+String functions run on the byte matrix where they are per-row and
+fixed-width, else over each distinct string on the host; date and time
+functions are int64 day and microsecond arithmetic; a TIMESTAMP WITH
+TIME ZONE is its UTC instant plus a per-row offset (``DCol.values2``).
 
-Not ported yet (they raise ``NotImplementedError``): the string, date
-and array scalar functions; nested types; LIKE with '_' on a BYTES
-column; ordered compares of BYTES columns; casts other than among
-numeric types and among string types; zoned timestamps.
+Not ported yet (they raise ``NotImplementedError``): the array functions
+and ``split``; nested types; LIKE with '_' on a BYTES column; ordered
+compares of BYTES columns; casts other than among numeric types, among
+string types and among date and timestamp types; named time zones.
 """
 
 from __future__ import annotations
 
+import base64
+import datetime as dt
+import json
 import math
+import re
 from typing import Optional
+from urllib.parse import quote_plus, unquote_plus, urlsplit
 
 import numpy as np
 import torch
@@ -167,7 +176,7 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
         if col.kind == DICT:
             a = expr.start - 1
             b = None if expr.size is None else a + expr.size
-            return _string_transform(col, lambda s: s[a:b], expr.dtype)
+            return _host_map(col, lambda s: s[a:b], expr.dtype)
         if col.kind != BYTES:
             raise NotImplementedError(f"substring of a {col.kind} column")
         v, lens = S.substring(col.values, col.lengths, expr.start, expr.size)
@@ -189,11 +198,19 @@ def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
 
 def _literal(expr: ir.Literal, n: int, dev) -> DCol:
     """A literal broadcast to ``n`` rows: a string as a BYTES column, a
-    NULL of any type as a column of its type's layout with no valid row
-    (a long decimal's is ``[n, 2]``)."""
+    zoned timestamp as its (UTC instant, offset) pair, a NULL of any type
+    as a column of its type's layout with no valid row (a long decimal's
+    is ``[n, 2]``)."""
     t, v = expr.dtype, expr.value
-    if T.is_timestamp_tz(t) or not isinstance(
-            v, (type(None), str, bool, int, float)):
+    if T.is_timestamp_tz(t):
+        us, off = (0, 0) if v is None else v  # (utc_micros, offset_minutes)
+        return DCol(t, PLAIN, torch.full((n,), int(us), dtype=torch.int64,
+                                         device=dev),
+                    validity=None if v is not None else torch.zeros(
+                        (n,), dtype=torch.bool, device=dev),
+                    values2=torch.full((n,), int(off), dtype=torch.int32,
+                                       device=dev))
+    if not isinstance(v, (type(None), str, bool, int, float)):
         raise NotImplementedError(f"{t} literal {v!r}")
     if v is None:
         never = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -228,23 +245,6 @@ def _literal(expr: ir.Literal, n: int, dev) -> DCol:
         return DCol(t if T.is_long_decimal(t) else T.decimal(38, 0), PLAIN,
                     words.expand(n, 2))
     return DCol(t, PLAIN, torch.full((n,), v, dtype=torch.int64, device=dev))
-
-
-def _string_transform(col: DCol, f, out_dtype) -> DCol:
-    """A host string function over a DICT column's dictionary, the codes
-    kept; where ``f`` maps two entries to one string the dictionary is
-    re-uniqued and the codes remapped, since GROUP BY and joins compare
-    codes."""
-    mapped = np.array([f(str(s)) for s in col.dictionary.strings],
-                      dtype=object)
-    uniq, remap = np.unique(mapped.astype(str), return_inverse=True)
-    if len(uniq) == len(mapped):
-        return DCol(out_dtype, DICT, col.values, validity=col.validity,
-                    dictionary=Dictionary(mapped))
-    codes = torch.from_numpy(remap.astype(np.int32)).to(col.values.device)[
-        col.values.to(torch.int64)]
-    return DCol(out_dtype, DICT, codes, validity=col.validity,
-                dictionary=Dictionary(uniq.astype(object)))
 
 
 def dcol_to_bytes(c: DCol) -> DCol:
@@ -379,16 +379,6 @@ def year_from_days(days: torch.Tensor) -> torch.Tensor:
     return civil_from_days(days)[0]
 
 
-def _to_days(col: DCol) -> torch.Tensor:
-    """date → days; timestamp (micros) → days, floored."""
-    if T.is_timestamp_tz(col.dtype):
-        raise NotImplementedError("EXTRACT of a TIMESTAMP WITH TIME ZONE")
-    v = col.values.to(torch.int64)
-    if isinstance(col.dtype, T.TimestampType):
-        return torch.div(v, 86_400_000_000, rounding_mode="floor")
-    return v
-
-
 def _eval_func(expr: ir.Func, chunk: Chunk) -> DCol:
     """Scalar functions (reference: ``operator/scalar/``): those of
     ``_FUNCS`` over their evaluated arguments, and the argument-less ones
@@ -430,7 +420,9 @@ def _round(expr, args) -> DCol:
 def _coalesce(expr, args) -> DCol:
     """The first non-NULL argument of each row.  String arguments go to
     BYTES, padded to the widest; decimals rescale to the result's scale,
-    and one long-decimal argument widens every one to (hi, lo) words."""
+    and one long-decimal argument widens every one to (hi, lo) words; a
+    zoned result takes each row's offset with its value (the JAX package
+    drops the offsets)."""
     rt = expr.dtype
     if T.is_string(rt):
         cols = [dcol_to_bytes(a) for a in args]
@@ -452,11 +444,24 @@ def _coalesce(expr, args) -> DCol:
         else:
             vals = [c.values for c in cols]
     out = vals[-1]
+    zoned = T.is_timestamp_tz(rt)
+    offs = _offsets(args[-1]) if zoned else None
     for a, v in zip(reversed(args[:-1]), reversed(vals[:-1])):
         ok = a.valid_or_true()
         out = torch.where(ok[:, None] if v.dim() == 2 else ok, v, out)
+        if zoned:
+            offs = torch.where(ok, _offsets(a), offs)
     return DCol(rt, PLAIN, out,
-                validity=_or_validity([a.validity for a in args]))
+                validity=_or_validity([a.validity for a in args]),
+                values2=offs)
+
+
+def _offsets(c: DCol) -> torch.Tensor:
+    """A timestamp column's int32 offsets (0, UTC, for a plain one)."""
+    if c.values2 is not None:
+        return c.values2
+    return torch.zeros((c.n_rows,), dtype=torch.int32,
+                       device=c.values.device)
 
 
 def _or_validity(vs) -> Optional[torch.Tensor]:
@@ -475,7 +480,7 @@ def _upper_lower(expr, args) -> DCol:
     (a,) = args
     up = expr.name == "upper"
     if a.kind == DICT:
-        return _string_transform(a, str.upper if up else str.lower, a.dtype)
+        return _host_map(a, str.upper if up else str.lower, a.dtype)
     if a.kind != BYTES:
         raise NotImplementedError(f"{expr.name} of a {a.kind} column")
     v = a.values
@@ -518,30 +523,6 @@ def _concat(expr, args) -> DCol:
                    out.lengths + b.lengths,
                    _and_validity(out.validity, b.validity))
     return out
-
-
-def _date_add(expr, args) -> DCol:
-    """date_add(unit, k, date) for day, week, month and year; a month or
-    year step clamps the day to the target month's length."""
-    unit = expr.args[0].value.lower() if isinstance(
-        expr.args[0], ir.Literal) else None
-    k, a = args[1].values.to(torch.int64), args[2]
-    days = _to_days(a)
-    if unit in ("day", "week"):
-        v = days + (7 * k if unit == "week" else k)
-    elif unit in ("month", "year"):
-        y, m, d = civil_from_days(days)
-        months = y * 12 + (m - 1) + (k if unit == "month" else 12 * k)
-        ny, nm = _fdiv(months, 12), months % 12 + 1
-        one = torch.ones_like(ny)
-        month_len = days_from_civil(torch.where(nm == 12, ny + 1, ny),
-                                    torch.where(nm == 12, 1, nm + 1), one) \
-            - days_from_civil(ny, nm, one)
-        v = days_from_civil(ny, nm, torch.minimum(d, month_len))
-    else:
-        raise NotImplementedError(f"date_add unit {unit}")
-    return DCol(T.DATE, PLAIN, v.to(torch.int32),
-                validity=_and_validity(args[1].validity, a.validity))
 
 
 def _mod(expr, args) -> DCol:
@@ -793,6 +774,828 @@ def _shift(expr, args) -> DCol:
                 validity=_and_validity(a.validity, b.validity))
 
 
+# ------------------------------------------------ dates, times and zones
+# (reference: ``DateTimeFunctions.java``, ``AtTimeZone``,
+# ``TimestampWithTimeZoneOperators``).  Days and microseconds are int64
+# arithmetic on the device; a TIMESTAMP WITH TIME ZONE keeps its UTC
+# instant in ``values`` and its offset in ``values2``.  Field extraction
+# and formatting read the wall time in the value's zone; compares,
+# ``to_unixtime`` and the day and week spans of ``date_diff`` read the
+# instant; ``date_trunc`` and ``date_add`` step the wall time and keep
+# the offset.
+
+US_PER_DAY = 86_400_000_000
+US_PER_MINUTE = 60_000_000
+_ZONE_OFFSET = re.compile(r"([+-])(\d{1,2})(?::?(\d{2}))?")
+
+
+def _zone_offset_minutes(z: str) -> int:
+    """A fixed-offset zone → minutes east of UTC: ``UTC``, ``Z``,
+    ``GMT``, ``+05:30``, ``-08``.  A named IANA zone raises: its offset
+    depends on the instant (the reference resolves it through
+    ``spi/TimeZoneKey`` and the zone's rules)."""
+    z = z.strip()
+    if z.upper() in ("UTC", "Z", "GMT"):
+        return 0
+    m = _ZONE_OFFSET.fullmatch(z)
+    if m is None:
+        raise NotImplementedError(f"named time zone {z!r} (fixed offsets "
+                                  "only)")
+    sign, hh, mm = m.groups()
+    return (-1 if sign == "-" else 1) * (int(hh) * 60 + int(mm or 0))
+
+
+def _offset_micros(col: DCol) -> torch.Tensor:
+    """A timestamp column's offsets in microseconds."""
+    return _offsets(col).to(torch.int64) * US_PER_MINUTE
+
+
+def _micros(col: DCol) -> torch.Tensor:
+    """The wall time of a date, timestamp or zoned column in microseconds
+    (a date at midnight; a zoned value in its own zone, as the reference's
+    ``TimestampWithTimeZoneToTimestampCast`` reads it)."""
+    v = col.values.to(torch.int64)
+    if T.is_timestamp_tz(col.dtype):
+        return v + _offset_micros(col)
+    if isinstance(col.dtype, T.TimestampType):
+        return v
+    if isinstance(col.dtype, T.DateType):
+        return v * US_PER_DAY
+    raise NotImplementedError(f"time field of a {col.dtype} column")
+
+
+def _instant(col: DCol) -> torch.Tensor:
+    """Microseconds since the epoch of a timestamp's instant (a plain
+    timestamp is in the session zone, UTC; a date at its midnight)."""
+    if isinstance(col.dtype, T.DateType):
+        return col.values.to(torch.int64) * US_PER_DAY
+    return col.values.to(torch.int64)
+
+
+def _to_days(col: DCol) -> torch.Tensor:
+    """A date's days; a timestamp's wall-time day, floored."""
+    if isinstance(col.dtype, T.DateType):
+        return col.values.to(torch.int64)
+    return _fdiv(_micros(col), US_PER_DAY)
+
+
+def _zoned(to: T.DataType, wall: torch.Tensor, col: DCol,
+           validity=None) -> DCol:
+    """A result of ``to``: a plain timestamp, or for a zoned ``col`` the
+    instant of ``wall`` in ``col``'s zones with its offsets kept."""
+    if T.is_timestamp_tz(col.dtype):
+        return DCol(to, PLAIN, wall - _offset_micros(col), validity=validity,
+                    values2=col.values2)
+    return DCol(to, PLAIN, wall, validity=validity)
+
+
+def _is_datetime(t: T.DataType) -> bool:
+    return isinstance(t, (T.DateType, T.TimestampType, T.TimestampTzType))
+
+
+def _cast_datetime(col: DCol, to: T.DataType) -> DCol:
+    """Casts among DATE, TIMESTAMP(p) and TIMESTAMP(p) WITH TIME ZONE.  A
+    precision cast keeps the microseconds (rendering truncates, as in
+    the JAX package); zoned → plain reads the wall time, zoned → zoned
+    keeps instant and offsets (the JAX package resets the offset to 0),
+    plain → zoned takes the session zone, UTC."""
+    if T.is_timestamp_tz(to):
+        return DCol(to, PLAIN, _instant(col), validity=col.validity,
+                    values2=_offsets(col))
+    if isinstance(to, T.TimestampType):
+        return DCol(to, PLAIN, _micros(col), validity=col.validity)
+    return DCol(to, PLAIN, _to_days(col).to(torch.int32),
+                validity=col.validity)
+
+
+def _date_field(expr, args) -> DCol:
+    """``month``, ``day``, ``quarter``, ``day_of_week``, ``day_of_year``,
+    and ISO ``week`` / ``year_of_week`` (the week of the Thursday), read
+    from the wall-time day."""
+    (a,) = args
+    days = _to_days(a)
+    name = expr.name
+    dow = (days + 3) % 7 + 1  # ISO: Monday is 1
+    if name in ("week", "year_of_week", "yow"):
+        thursday = days + (4 - dow)
+        y = civil_from_days(thursday)[0]
+        if name == "week":
+            jan1 = days_from_civil(y, torch.ones_like(y), torch.ones_like(y))
+            v = _fdiv(thursday - jan1, 7) + 1
+        else:
+            v = y
+    elif name in ("day_of_week", "dow"):
+        v = dow
+    else:
+        y, m, d = civil_from_days(days)
+        if name == "month":
+            v = m
+        elif name == "day":
+            v = d
+        elif name == "quarter":
+            v = _fdiv(m + 2, 3)
+        else:  # day_of_year / doy
+            one = torch.ones_like(y)
+            v = days - days_from_civil(y, one, one) + 1
+    return DCol(T.BIGINT, PLAIN, v, validity=a.validity)
+
+
+_TIME_FIELDS = {"hour": (3_600_000_000, 24), "minute": (60_000_000, 60),
+                "second": (1_000_000, 60), "millisecond": (1_000, 1000)}
+
+
+def _time_field(expr, args) -> DCol:
+    """``hour``, ``minute``, ``second``, ``millisecond`` of the wall time
+    (a date is at midnight)."""
+    (a,) = args
+    us = _micros(a)
+    div, mod = _TIME_FIELDS[expr.name]
+    tod = us - _fdiv(us, US_PER_DAY) * US_PER_DAY
+    return DCol(T.BIGINT, PLAIN, _fdiv(tod, div) % mod, validity=a.validity)
+
+
+def _month_length(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(y)
+    return days_from_civil(torch.where(m == 12, y + 1, y),
+                           torch.where(m == 12, 1, m + 1), one) \
+        - days_from_civil(y, m, one)
+
+
+def _last_day_of_month(expr, args) -> DCol:
+    (a,) = args
+    y, m, _ = civil_from_days(_to_days(a))
+    v = days_from_civil(y, m, torch.ones_like(y)) + _month_length(y, m) - 1
+    return DCol(T.DATE, PLAIN, v.to(torch.int32), validity=a.validity)
+
+
+def _from_unixtime(expr, args) -> DCol:
+    """Seconds (a number) → a timestamp, its microseconds truncated
+    toward zero as the JAX package's conversion does."""
+    (a,) = args
+    return DCol(expr.dtype, PLAIN, (as_double(a) * 1e6).to(torch.int64),
+                validity=a.validity)
+
+
+def _to_unixtime(expr, args) -> DCol:
+    """Seconds since the epoch of the instant (a zoned value is not
+    shifted by its offset; the JAX package shifts it)."""
+    (a,) = args
+    v = a.values.to(torch.float64)
+    v = v * 86400.0 if isinstance(a.dtype, T.DateType) else v / 1e6
+    return DCol(T.DOUBLE, PLAIN, v, validity=a.validity)
+
+
+def _at_timezone(expr, args) -> DCol:
+    """``x AT TIME ZONE z``: the same instant shown at ``z``'s offset (a
+    plain timestamp is an instant in the session zone, UTC)."""
+    a = args[0]
+    if not isinstance(a.dtype, (T.TimestampType, T.TimestampTzType)):
+        raise NotImplementedError(f"AT TIME ZONE of a {a.dtype} value")
+    off = _zone_offset_minutes(_lit_str(expr, 1, "zone"))
+    us = a.values.to(torch.int64)
+    return DCol(expr.dtype, PLAIN, us, validity=a.validity,
+                values2=torch.full(us.shape, off, dtype=torch.int32,
+                                   device=us.device))
+
+
+def _unit(expr) -> str:
+    return _lit_str(expr, 0, "unit").lower()
+
+
+def _trunc_days(days: torch.Tensor, unit: str) -> torch.Tensor:
+    if unit == "day":
+        return days
+    if unit == "week":
+        return days - (days + 3) % 7
+    y, m, _ = civil_from_days(days)
+    one = torch.ones_like(y)
+    if unit == "month":
+        return days_from_civil(y, m, one)
+    if unit == "quarter":
+        return days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    if unit == "year":
+        return days_from_civil(y, one, one)
+    raise NotImplementedError(f"date_trunc unit {unit}")
+
+
+_TRUNC_MICROS = {"second": 1_000_000, "minute": 60_000_000,
+                 "hour": 3_600_000_000, "day": US_PER_DAY}
+
+
+def _date_trunc(expr, args) -> DCol:
+    """``date_trunc(unit, x)``: a zoned value is truncated in its own
+    zone and keeps its offset (the JAX package truncates the wall time
+    and stores it as the instant)."""
+    unit, a = _unit(expr), args[1]
+    if isinstance(a.dtype, T.DateType):
+        return DCol(T.DATE, PLAIN,
+                    _trunc_days(_to_days(a), unit).to(torch.int32),
+                    validity=a.validity)
+    us = _micros(a)
+    if unit in _TRUNC_MICROS:
+        step = _TRUNC_MICROS[unit]
+        wall = _fdiv(us, step) * step
+    else:
+        wall = _trunc_days(_fdiv(us, US_PER_DAY), unit) * US_PER_DAY
+    return _zoned(a.dtype, wall, a, a.validity)
+
+
+def _add_months(days: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``days`` moved ``k`` calendar months, the day clamped to the
+    target month's length."""
+    y, m, d = civil_from_days(days)
+    months = y * 12 + (m - 1) + k
+    ny, nm = _fdiv(months, 12), months % 12 + 1
+    return days_from_civil(ny, nm, torch.minimum(d, _month_length(ny, nm)))
+
+
+_ADD_DAYS = {"day": 1, "week": 7}
+_ADD_MONTHS = {"month": 1, "quarter": 3, "year": 12}
+_ADD_MICROS = {"millisecond": 1_000, "second": 1_000_000,
+               "minute": 60_000_000, "hour": 3_600_000_000}
+
+
+def _date_add(expr, args) -> DCol:
+    """``date_add(unit, k, x)``: days and weeks, and months, quarters
+    and years with the day clamped to the target month's length; a
+    timestamp keeps its time of day (the JAX package returns its day as
+    a DATE) and also takes the sub-day units."""
+    unit = _unit(expr)
+    k, a = args[1].values.to(torch.int64), args[2]
+    dated = isinstance(a.dtype, T.DateType)
+    if unit not in _ADD_DAYS and unit not in _ADD_MONTHS and (
+            dated or unit not in _ADD_MICROS):
+        raise NotImplementedError(f"date_add unit {unit}")
+    us = _micros(a)  # the wall time: a day or month step keeps its clock
+    if unit in _ADD_MICROS:
+        wall = us + k * _ADD_MICROS[unit]
+    else:
+        days = _fdiv(us, US_PER_DAY)
+        moved = days + k * _ADD_DAYS[unit] if unit in _ADD_DAYS \
+            else _add_months(days, k * _ADD_MONTHS[unit])
+        wall = us + (moved - days) * US_PER_DAY
+    valid = _and_validity(args[1].validity, a.validity)
+    if dated:
+        return DCol(T.DATE, PLAIN, _fdiv(wall, US_PER_DAY).to(torch.int32),
+                    validity=valid)
+    return _zoned(a.dtype, wall, a, valid)
+
+
+def _leap(y: torch.Tensor) -> torch.Tensor:
+    return (y % 4 == 0) & ((y % 100 != 0) | (y % 400 == 0))
+
+
+def _whole_months(late: torch.Tensor, early: torch.Tensor) -> torch.Tensor:
+    """Whole calendar months from wall time ``early`` to ``late`` (>=),
+    Joda's ``BasicMonthOfYearDateTimeField.getDifferenceAsLong``: on the
+    last day of ``late``'s month, a later day of ``early``'s month counts
+    as that last day."""
+    dl, de = _fdiv(late, US_PER_DAY), _fdiv(early, US_PER_DAY)
+    yl, ml, dml = civil_from_days(dl)
+    ye, me, dme = civil_from_days(de)
+    last = dml == _month_length(yl, ml)
+    dme = torch.where(last & (dme > dml), dml, dme)
+    rem_l = (dml - 1) * US_PER_DAY + (late - dl * US_PER_DAY)
+    rem_e = (dme - 1) * US_PER_DAY + (early - de * US_PER_DAY)
+    return (yl - ye) * 12 + ml - me - (rem_l < rem_e).to(torch.int64)
+
+
+_FEB_29 = 59 * US_PER_DAY  # offset of Feb 29 in a leap year
+
+
+def _whole_years(late: torch.Tensor, early: torch.Tensor) -> torch.Tensor:
+    """Whole years from ``early`` to ``late`` (>=), Joda's
+    ``BasicGJChronology.getYearDifference``: a Feb 29 or later offset in
+    one of a leap and a common year is balanced by a day."""
+    yl = civil_from_days(_fdiv(late, US_PER_DAY))[0]
+    ye = civil_from_days(_fdiv(early, US_PER_DAY))[0]
+    one = torch.ones_like(yl)
+    rem_l = late - days_from_civil(yl, one, one) * US_PER_DAY
+    rem_e = early - days_from_civil(ye, one, one) * US_PER_DAY
+    past = rem_e >= _FEB_29
+    rem_e = torch.where(past & _leap(ye) & ~_leap(yl), rem_e - US_PER_DAY,
+                        rem_e)
+    rem_l = torch.where(past & ~_leap(ye) & (rem_l >= _FEB_29) & _leap(yl),
+                        rem_l - US_PER_DAY, rem_l)
+    return yl - ye - (rem_l < rem_e).to(torch.int64)
+
+
+def _date_diff(expr, args) -> DCol:
+    """``date_diff(unit, a, b)``: whole units from ``a`` to ``b``, as
+    Trino's Joda fields count them.  Days and weeks are the elapsed
+    instant truncated toward zero; months, quarters and years compare
+    calendar fields of the wall times in ``a``'s zone.  A negative span
+    is the negation of the positive one (the JAX package floors, and
+    counts days between wall-time dates).  Sub-day units raise, as in
+    the JAX package."""
+    unit = _unit(expr)
+    a, b = args[1], args[2]
+    shift = _offset_micros(a)  # both read in a's zone
+    ua, ub = _instant(a) + shift, _instant(b) + shift
+    span = ub - ua
+    if unit in ("day", "week"):
+        step = US_PER_DAY * (7 if unit == "week" else 1)
+        v = torch.div(span, step, rounding_mode="trunc")
+    elif unit in ("month", "quarter", "year"):
+        late, early = torch.maximum(ua, ub), torch.minimum(ua, ub)
+        whole = _whole_years(late, early) if unit == "year" \
+            else _whole_months(late, early)
+        if unit == "quarter":
+            whole = _fdiv(whole, 3)
+        v = torch.where(span < 0, -whole, whole)
+    else:
+        raise NotImplementedError(f"date_diff unit {unit}")
+    return DCol(T.BIGINT, PLAIN, v,
+                validity=_and_validity(a.validity, b.validity))
+
+
+_MYSQL_FORMAT = {"%Y": "%Y", "%y": "%y", "%m": "%m", "%d": "%d",
+                 "%H": "%H", "%i": "%M", "%s": "%S", "%W": "%A",
+                 "%a": "%a", "%M": "%B", "%j": "%j", "%%": "%%"}
+_MYSQL_PARSE = {"%i": "%M", "%s": "%S", "%M": "%B", "%W": "%A"}
+_JODA = {"yyyy": "%Y", "MM": "%m", "dd": "%d", "HH": "%H", "mm": "%M",
+         "ss": "%S"}
+
+
+def _strftime_format(name: str, fmt: str, parse: bool) -> str:
+    """A ``date_format`` / ``date_parse`` (MySQL specifiers) or
+    ``format_datetime`` / ``parse_datetime`` (a Joda subset) pattern as
+    a ``strftime`` pattern, token by token."""
+    if name in ("date_format", "date_parse"):
+        table = _MYSQL_PARSE if parse else _MYSQL_FORMAT
+        return re.sub(r"%.", lambda m: table.get(m.group(0), m.group(0)),
+                      fmt)
+    return re.sub(r"yyyy|MM|dd|HH|mm|ss", lambda m: _JODA[m.group(0)], fmt)
+
+
+_EPOCH = dt.datetime(1970, 1, 1)
+_ONE_MICRO = dt.timedelta(microseconds=1)
+
+
+def _date_format(expr, args) -> DCol:
+    """``date_format`` / ``format_datetime``: each distinct wall time
+    (of the valid rows) formatted on the host, a DICT column over the
+    distinct strings."""
+    a = args[0]
+    fmt = _strftime_format(expr.name, _lit_str(expr, 1, "format"), False)
+    day = isinstance(a.dtype, T.DateType)
+    v = _to_days(a) if day else _micros(a)
+    uniq, codes = torch.unique(torch.where(a.valid_or_true(), v, 0),
+                               return_inverse=True)
+    unit = dt.timedelta(days=1) if day else dt.timedelta(microseconds=1)
+    strs = [(_EPOCH + unit * u).strftime(fmt) for u in uniq.tolist()]
+    return _dict_result(strs, codes, a.validity, T.VARCHAR)
+
+
+def _date_parse(expr, args) -> DCol:
+    """``date_parse`` / ``parse_datetime``: each distinct string of the
+    valid rows parsed on the host, exact to the microsecond."""
+    a = args[0]
+    fmt = _strftime_format(expr.name, _lit_str(expr, 1, "format"), True)
+    strs, codes = _host_strings(a)
+    live = torch.zeros((len(strs),), dtype=torch.bool)
+    live[codes[a.valid_or_true()].cpu()] = True
+    us = [(dt.datetime.strptime(s, fmt) - _EPOCH) // _ONE_MICRO if ok else 0
+          for s, ok in zip(strs, live.tolist())]
+    table = torch.tensor(us, dtype=torch.int64, device=codes.device)
+    return DCol(expr.dtype, PLAIN, table[codes] if len(us) else
+                torch.zeros_like(codes), validity=a.validity)
+
+
+
+# ------------------------------------------------ string functions
+# (reference: ``StringFunctions.java``, ``JoniRegexpFunctions.java``,
+# ``JsonFunctions.java``, ``UrlFunctions.java``, ``VarbinaryFunctions``).
+# A DICT column maps its host dictionary.  A BYTES column stays a byte
+# matrix on the device for the per-row, fixed-width functions (the trim
+# family, ``reverse``, ``lpad``/``rpad``, ``starts_with``/``ends_with``,
+# ``strpos``, ``codepoint``, ``chr``); the others decode its rows on the
+# host, map each distinct string once and return a DICT column.  Bytes
+# past a row's length are zero in every BYTES result.  ASCII only, and
+# Python's ``re`` in place of Joni, as in the JAX package.
+
+def _lit_str(expr: ir.Func, i: int, what: str) -> str:
+    a = expr.args[i]
+    if not (isinstance(a, ir.Literal) and isinstance(a.value, str)):
+        raise NotImplementedError(f"{expr.name} with a non-literal {what}")
+    return a.value
+
+
+def _lit_int(expr: ir.Func, i: int, what: str) -> int:
+    a = expr.args[i]
+    if not (isinstance(a, ir.Literal) and isinstance(a.value, int)
+            and not isinstance(a.value, bool)):
+        raise NotImplementedError(f"{expr.name} with a non-literal {what}")
+    return a.value
+
+
+def _host_strings(col: DCol):
+    """A string column's distinct strings on the host and each row's
+    index among them (an int64 tensor on the column's device): a DICT
+    column's dictionary and codes, or a BYTES column's rows decoded."""
+    if col.kind == DICT:
+        return ([str(s) for s in col.dictionary.strings],
+                col.values.to(torch.int64))
+    if col.kind != BYTES:
+        raise NotImplementedError(f"string function of a {col.kind} "
+                                  f"{col.dtype} column")
+    vals = np.ascontiguousarray(col.values.cpu().numpy())
+    w = vals.shape[1]
+    raw = vals.tobytes()
+    index: dict = {}
+    rows = [index.setdefault(raw[i * w:i * w + ln], len(index))
+            for i, ln in enumerate(col.lengths.cpu().tolist())]
+    return ([b.decode("ascii") for b in index],
+            torch.tensor(rows, dtype=torch.int64, device=col.values.device))
+
+
+def _dict_result(strs, codes: torch.Tensor, validity, dtype) -> DCol:
+    """Strings (None for NULL) indexed by ``codes`` as a DICT column over
+    their sorted distinct values; NULL where the row's string is None."""
+    null = np.array([s is None for s in strs], dtype=bool)
+    mapped = np.array(["" if s is None else s for s in strs], dtype=object)
+    uniq, remap = np.unique(mapped.astype(str), return_inverse=True)
+    dev = codes.device
+    if null.any():
+        validity = _and_validity(validity,
+                                 ~torch.from_numpy(null).to(dev)[codes])
+    if len(uniq) == len(strs) and (remap == np.arange(len(strs))).all():
+        out = codes.to(torch.int32)
+    else:
+        out = torch.from_numpy(remap.astype(np.int32)).to(dev)[codes]
+    return DCol(dtype, DICT, out, validity=validity,
+                dictionary=Dictionary(uniq.astype(object)))
+
+
+def _host_map(col: DCol, f, out_dtype) -> DCol:
+    """``f`` (string → string, or None for NULL) over a string column's
+    distinct strings, a DICT column."""
+    strs, codes = _host_strings(col)
+    return _dict_result([f(s) for s in strs], codes, col.validity, out_dtype)
+
+
+def _host_scalar(col: DCol, f, out_dtype, np_dtype) -> DCol:
+    """``f`` (string → bool or int) over a string column's distinct
+    strings, gathered by row."""
+    strs, codes = _host_strings(col)
+    table = torch.from_numpy(np.array([f(s) for s in strs] or [0],
+                                      dtype=np_dtype)).to(codes.device)
+    return DCol(out_dtype, PLAIN, table[codes], validity=col.validity)
+
+
+def _need_bytes(col: DCol, name: str) -> None:
+    if col.kind != BYTES:
+        raise NotImplementedError(f"{name} of a {col.kind} {col.dtype} "
+                                  "column")
+
+
+def _gather_bytes(v: torch.Tensor, src: torch.Tensor, lens: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Byte ``src[r, k]`` of each row ``r`` for ``k`` below the row's new
+    length ``lens``, zero past it."""
+    got = torch.gather(v, 1, src.clamp(0, v.shape[1] - 1))
+    return torch.where(pos[None, :] < lens[:, None], got, 0).to(torch.uint8)
+
+
+def _is_space(v: torch.Tensor) -> torch.Tensor:
+    """Bytes Python's ``str.strip`` removes from ASCII text (as Java's
+    ``Character.isWhitespace``): tab to carriage return, the four
+    separators 28-31, and space."""
+    return (v == 32) | ((v >= 9) & (v <= 13)) | ((v >= 28) & (v <= 31))
+
+
+_STRIP = {"trim": str.strip, "ltrim": str.lstrip, "rtrim": str.rstrip}
+
+
+def _trim(expr, args) -> DCol:
+    (a,) = args
+    name = expr.name
+    if a.kind == DICT:
+        return _host_map(a, _STRIP[name], expr.dtype)
+    _need_bytes(a, name)
+    v, lens = a.values, a.lengths.to(torch.int64)
+    w = v.shape[1]
+    pos = torch.arange(w, device=v.device)
+    keep = (pos[None, :] < lens[:, None]) & ~_is_space(v)
+    some = keep.any(1)
+    k8 = keep.to(torch.uint8)
+    start = torch.zeros_like(lens) if name == "rtrim" else \
+        torch.where(some, k8.argmax(1), lens)
+    end = lens if name == "ltrim" else \
+        torch.where(some, w - k8.flip(1).argmax(1), 0)
+    new = (end - start).clamp_min(0)
+    out = _gather_bytes(v, start[:, None] + pos[None, :], new, pos)
+    return DCol(expr.dtype, BYTES, out, new.to(torch.int32), a.validity)
+
+
+def _reverse(expr, args) -> DCol:
+    (a,) = args
+    if a.kind == DICT:
+        return _host_map(a, lambda s: s[::-1], expr.dtype)
+    _need_bytes(a, "reverse")
+    lens = a.lengths.to(torch.int64)
+    pos = torch.arange(a.values.shape[1], device=lens.device)
+    out = _gather_bytes(a.values, lens[:, None] - 1 - pos[None, :], lens,
+                        pos)
+    return DCol(expr.dtype, BYTES, out, a.lengths, a.validity)
+
+
+def _pad(expr, args) -> DCol:
+    """``lpad`` / ``rpad(s, size[, pad])``: ``s`` cut to ``size``, or
+    filled to it with ``pad`` repeated (an empty pad leaves ``s`` as it
+    is, as in the JAX package)."""
+    a = args[0]
+    left = expr.name == "lpad"
+    size = _lit_int(expr, 1, "length")
+    if size < 0:
+        raise ValueError(f"{expr.name} target length {size} is negative")
+    pad = _lit_str(expr, 2, "pad") if len(expr.args) > 2 else " "
+    if a.kind == DICT:
+        def host(s):
+            if len(s) >= size or not pad:
+                return s[:size]
+            fill = (pad * size)[:size - len(s)]
+            return fill + s if left else s + fill
+        return _host_map(a, host, expr.dtype)
+    _need_bytes(a, expr.name)
+    lens = a.lengths.to(torch.int64)
+    kept = lens.clamp(max=size)
+    fill = (size - kept) if pad else torch.zeros_like(kept)
+    new = kept + fill
+    pos = torch.arange(max(size, 1), device=lens.device)[None, :]
+    p = torch.tensor(list(pad.encode("ascii")) or [0], dtype=torch.uint8,
+                     device=a.values.device)
+    if left:
+        src, fill_at = pos - fill[:, None], pos % len(p)
+        from_pad = pos < fill[:, None]
+    else:
+        src, fill_at = pos.expand(lens.shape[0], -1), \
+            (pos - kept[:, None]) % len(p)
+        from_pad = pos >= kept[:, None]
+    s = torch.gather(a.values, 1, src.clamp(0, a.values.shape[1] - 1))
+    out = torch.where(from_pad, p[fill_at], s)
+    out = torch.where(pos < new[:, None], out, 0).to(torch.uint8)
+    return DCol(expr.dtype, BYTES, out, new.to(torch.int32), a.validity)
+
+
+def _starts_ends(expr, args) -> DCol:
+    """``starts_with`` / ``ends_with`` a literal: a fixed-width compare of
+    the first or last bytes of a BYTES row."""
+    a = args[0]
+    lit = _lit_str(expr, 1, "prefix")
+    start = expr.name == "starts_with"
+    if a.kind == DICT:
+        f = str.startswith if start else str.endswith
+        return DCol(T.BOOLEAN, PLAIN, _dict_predicate(a, lambda s: f(s, lit)),
+                    validity=a.validity)
+    _need_bytes(a, expr.name)
+    n, w = a.values.shape
+    k = len(lit)
+    lens = a.lengths.to(torch.int64)
+    dev = a.values.device
+    if k == 0:
+        v = torch.ones((n,), dtype=torch.bool, device=dev)
+    elif k > w:
+        v = torch.zeros((n,), dtype=torch.bool, device=dev)
+    else:
+        pat = torch.tensor(list(lit.encode("ascii")), dtype=torch.uint8,
+                           device=dev)
+        if start:
+            part = a.values[:, :k]
+        else:
+            src = (lens - k)[:, None] + torch.arange(k, device=dev)[None, :]
+            part = torch.gather(a.values, 1, src.clamp(0, w - 1))
+        v = (lens >= k) & (part == pat).all(1)
+    return DCol(T.BOOLEAN, PLAIN, v, validity=a.validity)
+
+
+def _strpos(expr, args) -> DCol:
+    """1-based offset of a literal's first occurrence, 0 if none (1 for
+    the empty string)."""
+    a = args[0]
+    sub = _lit_str(expr, 1, "substring")
+    if a.kind == DICT:
+        return _host_scalar(a, lambda s: s.find(sub) + 1, T.BIGINT, np.int64)
+    _need_bytes(a, expr.name)
+    return DCol(T.BIGINT, PLAIN, S.strpos(a.values, a.lengths, sub),
+                validity=a.validity)
+
+
+def _codepoint(expr, args) -> DCol:
+    """The first character's code (0 for the empty string, as in the JAX
+    package)."""
+    (a,) = args
+    if a.kind == DICT:
+        return _host_scalar(a, lambda s: ord(s[0]) if s else 0, T.BIGINT,
+                            np.int64)
+    _need_bytes(a, "codepoint")
+    v = torch.where(a.lengths > 0, a.values[:, 0].to(torch.int64), 0)
+    return DCol(T.BIGINT, PLAIN, v, validity=a.validity)
+
+
+def _chr(expr, args) -> DCol:
+    """A one-byte string of the code's low byte (the JAX package's
+    ``uint8`` conversion)."""
+    (a,) = args
+    v = (a.values.to(torch.int64) & 0xFF).to(torch.uint8)[:, None]
+    return DCol(expr.dtype, BYTES, v, torch.ones(
+        (v.shape[0],), dtype=torch.int32, device=v.device), a.validity)
+
+
+def _translate_table(frm: str, to: str) -> dict:
+    """Trino's ``translate``: the first occurrence of a character in
+    ``frm`` decides it; one past the end of ``to`` is deleted."""
+    table: dict = {}
+    for i, c in enumerate(frm):
+        table.setdefault(ord(c), to[i] if i < len(to) else None)
+    return table
+
+
+def _split_part(s: str, delim: str, idx: int) -> Optional[str]:
+    parts = s.split(delim)
+    return parts[idx - 1] if idx <= len(parts) else None
+
+
+def _json_scalar(s: str, steps) -> Optional[str]:
+    """The scalar at a JSONPath, or None (NULL) where the path is
+    missing, JSON null, an object or an array, or the text is no JSON."""
+    try:
+        v = json.loads(s)
+        for st in steps:
+            v = v[int(st)] if isinstance(v, list) else v[st]
+    except (ValueError, KeyError, IndexError, TypeError):
+        return None
+    if v is None or isinstance(v, (dict, list)):
+        return None
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
+def _url_part(part: str):
+    def run(s: str) -> str:
+        u = urlsplit(s)
+        return {"protocol": u.scheme, "host": u.hostname or "",
+                "path": u.path, "query": u.query}[part]
+    return run
+
+
+def _url_port(s: str) -> int:
+    try:
+        p = urlsplit(s).port
+    except ValueError:
+        return -1
+    return -1 if p is None else p
+
+
+def _host_string_fn(expr: ir.Func):
+    """The host function of a string → string scalar, its literal
+    arguments bound."""
+    name = expr.name
+    if name == "replace":
+        frm = _lit_str(expr, 1, "search")
+        to = _lit_str(expr, 2, "replacement") if len(expr.args) > 2 else ""
+        return lambda s: s.replace(frm, to)
+    if name == "translate":
+        table = _translate_table(_lit_str(expr, 1, "from"),
+                                 _lit_str(expr, 2, "to"))
+        return lambda s: s.translate(table)
+    if name == "split_part":
+        delim = _lit_str(expr, 1, "delimiter")
+        idx = _lit_int(expr, 2, "index")
+        if idx <= 0:
+            raise ValueError(f"split_part index {idx} must be greater "
+                             "than zero")
+        return lambda s: _split_part(s, delim, idx)
+    if name == "regexp_extract":
+        pat = re.compile(_lit_str(expr, 1, "pattern"))
+        g = _lit_int(expr, 2, "group") if len(expr.args) > 2 else 0
+
+        def extract(s):
+            m = pat.search(s)
+            return None if m is None else m.group(g)
+        return extract
+    if name == "regexp_replace":
+        pat = re.compile(_lit_str(expr, 1, "pattern"))
+        repl = _lit_str(expr, 2, "replacement") if len(expr.args) > 2 else ""
+        repl = re.sub(r"\$(\d+)", r"\\\1", repl)  # SQL's $1 → Python's \1
+        return lambda s: pat.sub(repl, s)
+    if name == "json_extract_scalar":
+        path = _lit_str(expr, 1, "path")
+        if not path.startswith("$"):
+            raise ValueError(f"JSONPath {path!r} must start with $")
+        steps = [p for p in re.split(r"\.|\[|\]", path[1:]) if p]
+        return lambda s: _json_scalar(s, steps)
+    if name.startswith("url_extract_"):
+        return _url_part(name[len("url_extract_"):])
+    return _HOST_STRING[name]
+
+
+_HOST_STRING = {
+    "to_hex": lambda s: s.encode("ascii", "replace").hex().upper(),
+    "from_hex": lambda s: bytes.fromhex(s).decode("ascii", "replace"),
+    "to_base64": lambda s: base64.b64encode(
+        s.encode("ascii", "replace")).decode(),
+    "from_base64": lambda s: base64.b64decode(s).decode("ascii", "replace"),
+    "url_encode": quote_plus, "url_decode": unquote_plus,
+    "normalize_space": lambda s: " ".join(s.split())}
+
+
+def _host_string(expr, args) -> DCol:
+    return _host_map(args[0], _host_string_fn(expr), expr.dtype)
+
+
+def _regexp_like(expr, args) -> DCol:
+    pat = re.compile(_lit_str(expr, 1, "pattern"))
+    return _host_scalar(args[0], lambda s: pat.search(s) is not None,
+                        T.BOOLEAN, np.bool_)
+
+
+def _url_extract_port(expr, args) -> DCol:
+    out = _host_scalar(args[0], _url_port, T.BIGINT, np.int64)
+    return DCol(T.BIGINT, PLAIN, out.values,
+                validity=_and_validity(out.validity, out.values >= 0))
+
+
+def _row_values(col: DCol) -> list:
+    """Each row's Python value: strings, ints, floats, a decimal's value
+    as a float, a date as ``datetime.date`` (the JAX package's
+    ``_col_py_values``)."""
+    if col.kind != PLAIN:
+        strs, codes = _host_strings(col)
+        return [strs[c] for c in codes.tolist()]
+    if _is_i128(col):
+        raise NotImplementedError(f"a {col.dtype} value as text")
+    vals = col.values.cpu().tolist()
+    s = _scale_of(col.dtype)
+    if T.is_decimal(col.dtype) and s:
+        return [v / 10 ** s for v in vals]
+    if isinstance(col.dtype, T.DateType):
+        return [dt.date(1970, 1, 1) + dt.timedelta(days=v) for v in vals]
+    return vals
+
+
+def _rows_result(strs, validity, dtype, dev) -> DCol:
+    return _dict_result(strs, torch.arange(len(strs), dtype=torch.int64,
+                                           device=dev), validity, dtype)
+
+
+def _concat_ws(expr, args) -> DCol:
+    """``concat_ws(sep, x...)``: the non-NULL arguments joined, as Trino
+    skips NULLs (the JAX package makes the row NULL)."""
+    sep = _lit_str(expr, 0, "separator")
+    n = args[0].n_rows
+    vals = [_row_values(c) for c in args[1:]]
+    oks = [c.valid_or_true().cpu().tolist() for c in args[1:]]
+    strs = [sep.join(str(v) for v, ok in zip(row, okr) if ok)
+            for row, okr in zip(zip(*vals), zip(*oks))] if vals else [""] * n
+    return _rows_result(strs, None, expr.dtype, args[0].values.device)
+
+
+def _format(expr, args) -> DCol:
+    """``format(fmt, x...)`` through Python's ``%`` (the JAX package's
+    subset of Java's ``String.format``); NULL where an argument is."""
+    fmt = _lit_str(expr, 0, "format")
+    vals = [_row_values(a) for a in args[1:]]
+    strs = [fmt % r for r in zip(*vals)] if vals else [fmt] * args[0].n_rows
+    return _rows_result(strs,
+                        _and_validity(*(a.validity for a in args[1:])),
+                        expr.dtype, args[0].values.device)
+
+
+def _levenshtein(a: str, b: str) -> int:
+    if len(a) < len(b):
+        a, b = b, a
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[-1] + 1,
+                           prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+def _distance(expr, args) -> DCol:
+    """``levenshtein_distance`` and ``hamming_distance`` row by row on
+    the host; a Hamming distance of unequal lengths is NULL (the JAX
+    package's rule; Trino fails)."""
+    a, b = args
+    pairs = list(zip(_row_values(a), _row_values(b)))
+    dev = a.values.device
+    valid = _and_validity(a.validity, b.validity)
+    if expr.name == "hamming_distance":
+        same = [len(x) == len(y) for x, y in pairs]
+        out = [sum(p != q for p, q in zip(x, y)) if ok else 0
+               for (x, y), ok in zip(pairs, same)]
+        valid = _and_validity(valid, torch.tensor(same, dtype=torch.bool,
+                                                  device=dev))
+    else:
+        out = [_levenshtein(x, y) for x, y in pairs]
+    return DCol(T.BIGINT, PLAIN, torch.tensor(out, dtype=torch.int64,
+                                              device=dev), validity=valid)
+
+
 # ------------------------------------------------ row-numbering functions
 
 ROW_NUMBERING = ("unique_id", "uuid")
@@ -843,7 +1646,7 @@ def _constant(c: float):
 
 _FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
           "upper": _upper_lower, "lower": _upper_lower, "length": _length,
-          "concat": _concat, "date_add": _date_add, "mod": _mod,
+          "concat": _concat, "mod": _mod,
           "greatest": _greatest_least, "least": _greatest_least,
           "sqrt": _sqrt, "cbrt": _double_fn(cbrt),
           "exp": _double_fn(torch.exp), "sin": _double_fn(torch.sin),
@@ -866,7 +1669,36 @@ _FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
           "bitwise_xor": _bitwise2, "bitwise_not": _bitwise_not,
           "bit_count": _bit_count, "bitwise_left_shift": _shift,
           "bitwise_right_shift": _shift,
-          "bitwise_right_shift_arithmetic": _shift}
+          "bitwise_right_shift_arithmetic": _shift,
+          # dates, times and zones
+          "month": _date_field, "day": _date_field, "quarter": _date_field,
+          "week": _date_field, "year_of_week": _date_field,
+          "yow": _date_field, "day_of_week": _date_field,
+          "dow": _date_field, "day_of_year": _date_field,
+          "doy": _date_field, "hour": _time_field, "minute": _time_field,
+          "second": _time_field, "millisecond": _time_field,
+          "last_day_of_month": _last_day_of_month,
+          "from_unixtime": _from_unixtime, "to_unixtime": _to_unixtime,
+          "at_timezone": _at_timezone, "date_trunc": _date_trunc,
+          "date_add": _date_add, "date_diff": _date_diff,
+          "date_format": _date_format, "format_datetime": _date_format,
+          "date_parse": _date_parse, "parse_datetime": _date_parse,
+          # strings
+          "trim": _trim, "ltrim": _trim, "rtrim": _trim,
+          "reverse": _reverse, "lpad": _pad, "rpad": _pad,
+          "starts_with": _starts_ends, "ends_with": _starts_ends,
+          "strpos": _strpos, "position": _strpos, "codepoint": _codepoint,
+          "chr": _chr, "regexp_like": _regexp_like,
+          "url_extract_port": _url_extract_port, "concat_ws": _concat_ws,
+          "format": _format, "levenshtein_distance": _distance,
+          "hamming_distance": _distance,
+          **{name: _host_string for name in (
+              "replace", "translate", "split_part", "regexp_extract",
+              "regexp_replace", "json_extract_scalar", "to_hex",
+              "from_hex", "to_base64", "from_base64", "url_encode",
+              "url_decode", "normalize_space", "url_extract_protocol",
+              "url_extract_host", "url_extract_path",
+              "url_extract_query")}}
 
 # functions of no argument, evaluated over the chunk's rows
 _NULLARY = {"unique_id": _unique_id, "uuid": _uuid,
@@ -969,12 +1801,15 @@ def as_double(col: DCol) -> torch.Tensor:
 
 def _cast(col: DCol, to: T.DataType) -> DCol:
     """Casts between integer, decimal and DOUBLE types (decimal rescales
-    HALF_UP) and between string types (the layout kept)."""
+    HALF_UP), between string types (the layout kept) and among date and
+    timestamp types (``_cast_datetime``)."""
     if col.dtype == to:
         return col
     if T.is_string(to) and T.is_string(col.dtype):
         return DCol(to, col.kind, col.values, col.lengths, col.validity,
                     col.dictionary)
+    if _is_datetime(to) and _is_datetime(col.dtype):
+        return _cast_datetime(col, to)
     numeric = (T.is_decimal(col.dtype) or T.is_integral(col.dtype)) \
         and col.kind == PLAIN
     if numeric and isinstance(to, T.DoubleType):

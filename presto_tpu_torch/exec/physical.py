@@ -182,6 +182,19 @@ def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
 
 # ---------------------------------------------------------------- row shape
 
+# aggregates whose result is no value of their argument (a count, a
+# sketch) or is one of its rows gathered whole, offsets included
+KEEPS_ZONE = ("count", "count_star", "approx_distinct", "arbitrary",
+              "any_value")
+
+
+def refuse_zoned(c: DCol, what: str) -> None:
+    """Raise where an operator would rebuild a TIMESTAMP WITH TIME ZONE
+    column from its instants alone, dropping the offsets."""
+    if c.values2 is not None:
+        raise NotImplementedError(f"{what} of a {c.dtype} column")
+
+
 def _compact(chunk: Chunk, rows: int) -> Chunk:
     """Gather masked-in rows to the front (in order) and keep ``rows``."""
     perm = torch.sort((~chunk.mask).to(torch.int8), stable=True).indices[:rows]
@@ -207,7 +220,8 @@ def _exec_limit(child: Chunk, n: int) -> Chunk:
     cols = {name: DCol(c.dtype, c.kind, c.values[:n],
                        None if c.lengths is None else c.lengths[:n],
                        None if c.validity is None else c.validity[:n],
-                       c.dictionary)
+                       c.dictionary,
+                       None if c.values2 is None else c.values2[:n])
             for name, c in child.cols.items()}
     return Chunk(cols, child.mask[:n])
 
@@ -227,6 +241,7 @@ def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
             raise ValueError(f"scalar subquery {name} returns "
                              f"{len(sc.cols)} columns, not one")
         (c,) = sc.cols.values()
+        refuse_zoned(c, "a scalar subquery")
         if c.kind != PLAIN:
             raise NotImplementedError(
                 f"scalar subquery of a {c.kind} {c.dtype} column")
@@ -534,6 +549,8 @@ def _window_function(spec: WindowSpec, chunk: Chunk, plan: PhysWindow,
     vmask = smask
     if f != "count_star":
         c = eval_expr(spec.arg, chunk)
+        if f != "count":
+            refuse_zoned(c, f"window {f}")
         vmask = smask & c.valid_or_true()[perm]
     if f in ("count", "count_star"):
         vals, adt = None, T.BIGINT
@@ -668,7 +685,8 @@ def _groupid(chunk: Chunk, keys, sets, gid_name: str) -> Chunk:
         part = member[setid, ki]
         cols[out_name] = DCol(kc.dtype, kc.kind, kc.values, kc.lengths,
                               part if kc.validity is None
-                              else kc.validity & part, kc.dictionary)
+                              else kc.validity & part, kc.dictionary,
+                              kc.values2)
     cols[gid_name] = DCol(T.BIGINT, PLAIN, setid.to(torch.int64))
     return Chunk(cols, copies.mask)
 
@@ -843,6 +861,8 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         return DCol(T.BIGINT, PLAIN, A.seg_count(slot, mask, capacity),
                     validity=gvalid)
     c = eval_expr(spec.arg, chunk)
+    if spec.func not in KEEPS_ZONE:
+        refuse_zoned(c, spec.func)
     vmask = mask & c.valid_or_true()
     vals = c.values
     ot = _agg_output_type(spec)
@@ -918,6 +938,8 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
                                   A.g_count(chunk.mask).reshape(1))
             continue
         c = eval_expr(spec.arg, chunk)
+        if spec.func not in KEEPS_ZONE:
+            refuse_zoned(c, spec.func)
         m = chunk.mask & c.valid_or_true()
         ot = _agg_output_type(spec)
         nonempty = (A.g_count(m) > 0).reshape(1)
@@ -1198,7 +1220,8 @@ def _join_expand_pairs(plan: PhysHashJoin, probe: Chunk, build: Chunk,
     for name in {o for o, _ in plan.build_payload}:
         c = cols[name]
         cols[name] = DCol(c.dtype, c.kind, c.values, c.lengths,
-                          c.valid_or_true() & ~null_extend, c.dictionary)
+                          c.valid_or_true() & ~null_extend, c.dictionary,
+                          c.values2)
     return Chunk(cols, mask)
 
 
@@ -1245,7 +1268,9 @@ def concat_chunks(chunks: List[Chunk]) -> Chunk:
     each column's layouts as the JAX package does: DICT over one
     dictionary keeps its codes; DICT over different dictionaries, or
     beside BYTES (a string NULL literal is one), goes to BYTES padded to
-    the widest; int64 beside long-decimal words widens to ``[n, 2]``."""
+    the widest; int64 beside long-decimal words widens to ``[n, 2]``; a
+    zoned timestamp's offsets concatenate, 0 (the session zone, UTC) for
+    a part that has none."""
     out: Dict[str, DCol] = {}
     for name in chunks[0].cols:
         cols = [ch.cols[name] for ch in chunks]
@@ -1270,8 +1295,14 @@ def concat_chunks(chunks: List[Chunk]) -> Chunk:
                         for c in cols]
             else:
                 vals = [c.values for c in cols]
+            v2 = None
+            if any(c.values2 is not None for c in cols):
+                v2 = torch.cat([torch.zeros((c.n_rows,), dtype=torch.int32,
+                                            device=c.values.device)
+                                if c.values2 is None else c.values2
+                                for c in cols])
             out[name] = DCol(wide.dtype, PLAIN, torch.cat(vals), None,
-                             _concat_validity(cols))
+                             _concat_validity(cols), values2=v2)
         else:
             raise NotImplementedError(
                 f"concat of {sorted(kinds)} columns {name!r}")

@@ -132,3 +132,14 @@ def substring(values: torch.Tensor, lengths: torch.Tensor, start: int,
     new_len = (lengths.to(torch.int64) - s0).clamp(0, size)
     out = torch.where(pos < new_len[:, None], out, 0)
     return out, new_len.to(torch.int32)
+
+
+def strpos(values: torch.Tensor, lengths: torch.Tensor,
+           sub: str) -> torch.Tensor:
+    """int64[N]: 1-based offset of ``sub``'s first occurrence inside each
+    row, 0 where there is none (1 for the empty ``sub``), as Trino's
+    ``strpos``."""
+    at = _find_from(values, lengths, sub.encode("ascii"),
+                    torch.zeros((values.shape[0],), dtype=torch.int32,
+                                device=values.device))
+    return torch.where(at == BIG, 0, at.to(torch.int64) + 1)

@@ -155,6 +155,8 @@ def _partial_states(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid):
             T.BIGINT, PLAIN, A.seg_count(slot, mask, capacity),
             validity=gvalid))]
     c = eval_expr(spec.arg, chunk)
+    if spec.func not in PH.KEEPS_ZONE:
+        PH.refuse_zoned(c, f"the {spec.func} state")
     vmask = mask & c.valid_or_true()
     cnt = A.seg_count(slot, vmask, capacity)
     count = (f"{spec.name}#cnt", "sum",

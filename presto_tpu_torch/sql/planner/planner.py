@@ -23,6 +23,7 @@ Condenses the reference's analyzer + logical planner + key optimizer rules
 from __future__ import annotations
 
 import datetime as dt
+import re
 from dataclasses import dataclass, field as dfield
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -47,36 +48,54 @@ def _days(iso: str) -> int:
     return (dt.date.fromisoformat(iso) - EPOCH).days
 
 
+_TS_LITERAL = re.compile(
+    r"(\d{4}-\d{2}-\d{2})(?:[T ](\d{1,2}:\d{2}(?::\d{2}(?:\.\d+)?)?))?"
+    r"\s*(.*)")
+_OFFSET = re.compile(r"([+-])(\d{1,2})(?::?(\d{2}))?")
+_ONE_MICRO = dt.timedelta(microseconds=1)
+
+
+def _parse_timestamp(text: str):
+    """A timestamp literal → (micros since the epoch of its wall time,
+    offset minutes or None when it names no zone).  The zone may follow
+    the time with or without a space: ``+05:30``, ``-08``, ``Z`` or
+    ``UTC``; a named IANA zone raises, since its offset depends on the
+    instant (reference: ``spi/TimeZoneKey``).  Integer arithmetic on the
+    ``timedelta``: ``total_seconds() * 1e6`` loses a microsecond on
+    about one instant in a hundred."""
+    m = _TS_LITERAL.fullmatch(text.strip())
+    if m is None:
+        raise ValueError(f"timestamp literal {text!r}")
+    day, time, zone = m.groups()
+    wall = dt.datetime.fromisoformat(day + (" " + time if time else ""))
+    micros = (wall - dt.datetime(1970, 1, 1)) // _ONE_MICRO
+    if not zone:
+        return micros, None
+    if zone.upper() in ("Z", "UTC", "GMT"):
+        return micros, 0
+    off = _OFFSET.fullmatch(zone)
+    if off is None:
+        raise NotImplementedError(
+            f"named time zone {zone!r} in a timestamp literal "
+            "(fixed offsets only)")
+    sign, hh, mm = off.groups()
+    return micros, (-1 if sign == "-" else 1) * (int(hh) * 60 + int(mm or 0))
+
+
 def _timestamp_micros(text: str) -> int:
-    t = text.strip()
-    if " " in t:
-        d = dt.datetime.fromisoformat(t)
-    else:
-        d = dt.datetime.combine(dt.date.fromisoformat(t), dt.time())
-    if d.tzinfo is not None:
+    micros, off = _parse_timestamp(text)
+    if off is not None:
         raise ValueError("zoned literal — use _timestamp_tz_parts")
-    return int((d - dt.datetime(1970, 1, 1)).total_seconds() * 1_000_000)
+    return micros
 
 
 def _timestamp_tz_parts(text: str):
     """``'2020-06-10 15:30:00 +05:30'`` → (utc_micros, offset_minutes),
-    or None when the literal carries no zone.  Literal zones are fixed
-    offsets (reference: ``spi/TimeZoneKey`` resolves names to offsets;
-    named IANA zones need per-instant DST rules — see at_timezone)."""
-    t = text.strip()
-    if " " not in t:
+    or None when the literal carries no zone."""
+    micros, off = _parse_timestamp(text)
+    if off is None:
         return None
-    # python's fromisoformat accepts '+05:30' only without the space
-    head, _, tail = t.rpartition(" ")
-    if tail and tail[0] in "+-" and ":" in tail:
-        t = head + tail
-    d = dt.datetime.fromisoformat(t)
-    if d.tzinfo is None:
-        return None
-    off_min = int(d.utcoffset().total_seconds() // 60)
-    utc = d.astimezone(dt.timezone.utc).replace(tzinfo=None)
-    us = int((utc - dt.datetime(1970, 1, 1)).total_seconds() * 1_000_000)
-    return us, off_min
+    return micros - off * 60_000_000, off
 
 
 def _add_interval(d: dt.date, n: int, unit: str) -> dt.date:

@@ -141,7 +141,8 @@ def test_http_client_pages_and_errors(server):
 
 
 def test_not_supported_through_the_protocol(server):
-    body = _post(server.url, "select reverse(r_name) m from region")
+    body = _post(server.url,
+                 "select reverse(split(r_name, 'A')) m from region")
     assert body["error"]["errorName"] == "NOT_SUPPORTED"
     assert body["error"]["errorType"] == "USER_ERROR"
 

@@ -979,3 +979,164 @@ class Li95:
         """SHOW STATS rows: column, distinct values, low, high, rows."""
         return [[c, int(np.unique(v).shape[0]), int(v.min()), int(v.max()),
                  self.n] for c, v in self.cols.items()]
+
+
+# ---------------------------------------------------------------- strings
+# and dates: ``chip_smoke.py``'s ``strings_dates`` phase at SF1
+
+STRINGS_DATES = {
+    "bytes_trim_strpos": "select sum(length(trim(l_comment))) t, "
+                         "sum(strpos(l_comment, 'the')) p from lineitem",
+    "bytes_pad_prefix": "select count(*) c, sum(codepoint(reverse(c_phone))) "
+                        "s from customer where starts_with(c_phone, '13-') "
+                        "and ends_with(rpad(c_name, 20, '*'), '*')",
+    "bytes_regexp": "select regexp_extract(p_name, '^[a-z]+') w, count(*) c "
+                    "from part where regexp_like(p_name, "
+                    "'^[a-m][a-z]* [a-z]*e ') group by 1 "
+                    "order by c desc, w limit 10",
+    "dict_split_codecs": "select split_part(o_orderpriority, '-', 2) p, "
+                         "to_hex(o_orderstatus) h, count(*) c from orders "
+                         "group by 1, 2 order by 1, 2",
+    "split_part_null": "select count(*) c from orders "
+                       "where split_part(o_orderpriority, '-', 3) is null",
+    "date_parts": "select quarter(o_orderdate) q, day_of_week(o_orderdate) d, "
+                  "count(*) c, sum(o_totalprice) s from orders "
+                  "group by 1, 2 order by 1, 2",
+    "date_diff_join": "select sum(date_diff('day', o_orderdate, l_shipdate)) "
+                      "d, sum(date_diff('month', l_receiptdate, o_orderdate)) "
+                      "m, sum(date_diff('week', l_receiptdate, o_orderdate)) "
+                      "w from lineitem, orders where l_orderkey = o_orderkey",
+    "trunc_format": "select date_format(date_trunc('month', l_shipdate), "
+                    "'%Y-%m') m, count(*) c from lineitem group by 1 "
+                    "order by 1",
+    "iso_week": "select year_of_week(l_shipdate) y, week(l_shipdate) w, "
+                "count(*) c from lineitem where l_shipdate between "
+                "date '1995-12-25' and date '1996-01-10' group by 1, 2 "
+                "order by 1, 2",
+    "month_end": "select count(*) c from orders where "
+                 "date_add('month', 1, o_orderdate) > "
+                 "last_day_of_month(o_orderdate)",
+    "zoned": "select hour(cast(o_orderdate as timestamp) at time zone "
+             "'+05:30') h, min(to_unixtime(cast(o_orderdate as timestamp) "
+             "at time zone '-08:00')) u, count(*) c from orders group by 1",
+}
+
+
+def byte_strings(t: Tables, table: str, name: str) -> np.ndarray:
+    """A byte-matrix string column as numpy fixed-width bytes (``S<W>``,
+    the zero padding past each row's length dropped)."""
+    c = t.col(table, name)
+    v = np.ascontiguousarray(c.values, dtype=np.uint8)
+    inside = np.arange(v.shape[1])[None, :] < np.asarray(c.lengths)[:, None]
+    return np.ascontiguousarray(v * inside).view(f"S{v.shape[1]}").ravel()
+
+
+def _ymd(days_: np.ndarray):
+    """(year, month, day) of days since 1970-01-01 through numpy's
+    calendar."""
+    d = np.asarray(days_, np.int64).astype("datetime64[D]")
+    m = d.astype("datetime64[M]")
+    y = m.astype("datetime64[Y]")
+    return (y.astype(np.int64) + 1970, (m - y).astype(np.int64) + 1,
+            (d - m).astype(np.int64) + 1)
+
+
+def add_months(days_: np.ndarray, k) -> np.ndarray:
+    """Days moved ``k`` calendar months, the day clamped to the target
+    month's length (Trino's ``date_add``)."""
+    d = np.asarray(days_, np.int64).astype("datetime64[D]")
+    month = d.astype("datetime64[M]") + np.asarray(k, np.int64)
+    length = ((month + 1).astype("datetime64[D]")
+              - month.astype("datetime64[D]")).astype(np.int64)
+    day = (d - d.astype("datetime64[M]")).astype(np.int64)
+    return (month.astype("datetime64[D]").astype(np.int64)
+            + np.minimum(day, length - 1))
+
+
+def months_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Trino's ``date_diff('month', a, b)`` of dates: the most whole
+    months ``k`` with ``a`` moved ``k`` months not after ``b``, negated
+    where ``b`` is before ``a``."""
+    early, late = np.minimum(a, b), np.maximum(a, b)
+    ye, me, _ = _ymd(early)
+    yl, ml, _ = _ymd(late)
+    k = (yl - ye) * 12 + ml - me
+    k = k - (add_months(early, k) > late)
+    return np.where(b < a, -k, k)
+
+
+def strings_dates(t: Tables) -> dict:
+    """The ``STRINGS_DATES`` statements' results, by numpy's char and
+    calendar functions and Python's ``re`` and ``datetime``."""
+    import re
+    li, od = "lineitem", "orders"
+    out = {}
+    com = byte_strings(t, li, "l_comment")
+    out["bytes_trim_strpos"] = {
+        "t": [int(np.char.str_len(np.char.strip(com)).sum())],
+        "p": [int((np.char.find(com, b"the") + 1).sum())]}
+    phone = t.s("customer", "c_phone")
+    name = t.s("customer", "c_name")
+    hit = [p for p, n in zip(phone, name) if p.startswith("13-")
+           and (n[:20] + "*" * 20)[:20].endswith("*")]
+    out["bytes_pad_prefix"] = {"c": [len(hit)],
+                               "s": [sum(ord(p[-1]) for p in hit)]}
+    cnt = {}
+    for p in t.s("part", "p_name"):
+        if re.search(r"^[a-m][a-z]* [a-z]*e ", p):
+            w = re.search(r"^[a-z]+", p).group(0)
+            cnt[w] = cnt.get(w, 0) + 1
+    top = sorted(cnt.items(), key=lambda x: (-x[1], x[0]))[:10]
+    out["bytes_regexp"] = {"w": [w for w, _ in top], "c": [c for _, c in top]}
+    prio, status = t.s(od, "o_orderpriority"), t.s(od, "o_orderstatus")
+    pairs = {}
+    for p, s in zip(prio, status):
+        key = (p.split("-")[1], s.encode().hex().upper())
+        pairs[key] = pairs.get(key, 0) + 1
+    keys = sorted(pairs)
+    out["dict_split_codecs"] = {"p": [k[0] for k in keys],
+                                "h": [k[1] for k in keys],
+                                "c": [pairs[k] for k in keys]}
+    out["split_part_null"] = {"c": [sum(len(p.split("-")) < 3
+                                        for p in prio)]}
+    od_date = t.v(od, "o_orderdate").astype(np.int64)
+    _, month, _ = _ymd(od_date)
+    q = (month - 1) // 3 + 1
+    dow = (od_date.astype("datetime64[D]").astype(object))
+    dow = np.array([d.isoweekday() for d in dow], np.int64)
+    price = t.v(od, "o_totalprice")
+    gid = q * 8 + dow
+    g, s = group_sum(gid, price)
+    c = np.bincount(gid, minlength=int(gid.max()) + 1)[g]
+    out["date_parts"] = {"q": _py(g // 8), "d": _py(g % 8), "c": _py(c),
+                         "s": [exact_sum(price[gid == x]) for x in g]}
+    row, found = lookup(t.v(od, "o_orderkey"), t.v(li, "l_orderkey"))
+    odate = od_date[row[found]]
+    ship = t.v(li, "l_shipdate").astype(np.int64)[found]
+    recv = t.v(li, "l_receiptdate").astype(np.int64)[found]
+    span = odate - recv
+    out["date_diff_join"] = {
+        "d": [exact_sum(ship - odate)],
+        "m": [exact_sum(months_between(recv, odate))],
+        "w": [exact_sum(np.sign(span) * (np.abs(span) // 7))]}
+    ld = t.v(li, "l_shipdate").astype(np.int64)
+    mon = np.datetime_as_string(ld.astype("datetime64[D]").astype(
+        "datetime64[M]"))
+    names, counts = np.unique(mon, return_counts=True)
+    out["trunc_format"] = {"m": _py(names), "c": _py(counts)}
+    lo, hi = days("1995-12-25"), days("1996-01-10")
+    wk = {}
+    for d, n in zip(*np.unique(ld[(ld >= lo) & (ld <= hi)],
+                               return_counts=True)):
+        y, w, _ = (dt.date(1970, 1, 1) + dt.timedelta(days=int(d))
+                   ).isocalendar()
+        wk[(y, w)] = wk.get((y, w), 0) + int(n)
+    keys = sorted(wk)
+    out["iso_week"] = {"y": [k[0] for k in keys], "w": [k[1] for k in keys],
+                       "c": [wk[k] for k in keys]}
+    last = (od_date.astype("datetime64[D]").astype("datetime64[M]") + 1
+            ).astype("datetime64[D]").astype(np.int64) - 1
+    out["month_end"] = {"c": [int((add_months(od_date, 1) > last).sum())]}
+    out["zoned"] = {"h": [5], "u": [float(od_date.min()) * 86400.0],
+                    "c": [int(od_date.shape[0])]}
+    return out
