@@ -65,6 +65,22 @@ non-zero without printing a result):
    ``date_format`` of ``date_trunc``, ISO weeks, ``date_add`` against
    ``last_day_of_month`` and zoned timestamps (the hour in the zone, the
    instant kept);
+6d. aggregates_patterns: the same runner and tables take the
+   ``AGGREGATES_PATTERNS`` statements of ``tools/np_tpch_oracle.py`` the
+   same way (one ``aggregates_patterns_statement`` line each, both
+   kernels required, each one's largest launch captured): bool_and/or,
+   bitwise_and/or_agg, checksum and count over lineitem by return flag
+   and line status; the corr family of (price, quantity) and
+   geometric_mean by return flag (DOUBLEs to 1e-12 relative of exact
+   rational moments and ``math.fsum`` logarithms, the largest relative
+   error printed); exact grouped and global approx_percentile;
+   min_by/max_by keyed by a DATE (the JAX package's fault) and over
+   lineitem ⋈ orders keyed by a value unique per row (``sorted_probe``);
+   a global checksum (``masked_sum``); MATCH_RECOGNIZE ONE ROW and ALL
+   ROWS PER MATCH over 1.5 M orders, summed, against ``re.finditer``.
+   Then ``AGGREGATES_STREAMED`` through ``run_sql_streaming`` (131072
+   order units a slice, at least 8 slices), equal to the oracle, one
+   ``aggregates_streamed`` line each;
 7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
    all 99 TPC-DS queries (``tpcds.queries.RUNS``, windows and GROUPING
    SETS among them) run through ``run_sql`` (one warm-up, then 3 timed
@@ -120,7 +136,8 @@ non-zero without printing a result):
    the resident scan's bytes.  Launch counts of both paths are read
    around their runs;
 10. a ``kernels`` JSON line (launches by path: tpch, scalars,
-    strings_dates, tpcds, server, tiers, streamed), then the card line,
+    strings_dates, aggregates_patterns, aggregates_streamed, tpcds,
+    server, tiers, streamed), then the card line,
     then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -498,31 +515,53 @@ def record_largest(torch, kernel: str, best: dict):
     return record
 
 
+def check_statement(label: str, name: str, table, want: dict,
+                    doubles=(), rel: float = SCALARS_REL) -> float:
+    """Raise unless ``table`` equals the oracle's ``want[name]``: exactly,
+    or, for a statement in ``doubles``, its DOUBLE values to ``rel`` of
+    the oracle's.  Returns the largest relative error of those values (0
+    for an exact statement)."""
+    got = {c: col.to_pylist() for c, col in table.columns.items()}
+    w = want[name]
+    if name not in doubles:
+        if got != w:
+            raise AssertionError(f"{label} {name}: {got} != oracle {w}")
+        return 0.0
+    worst = 0.0
+    ok = got.keys() == w.keys() and all(len(got[c]) == len(w[c]) for c in w)
+    for c in w if ok else ():
+        for a, b in zip(got[c], w[c]):
+            if not isinstance(b, float):
+                ok = ok and a == b
+                continue
+            err = abs(a - b) / abs(b) if b else abs(a)
+            worst = max(worst, err)
+            ok = ok and err <= rel
+    if not ok:
+        raise AssertionError(f"{label} {name}: {got} != oracle {w}")
+    return worst
+
+
 def statements_phase(torch, CK, runner, card: str, label: str,
-                     statements: dict, oracle, doubles=()) -> dict:
-    """Phases 6b and 6c (see the module docstring): ``statements`` on
+                     statements: dict, oracle, doubles=(),
+                     rel: float = SCALARS_REL) -> dict:
+    """Phases 6b, 6c and 6d (see the module docstring): ``statements`` on
     phase 4's SF1 runner, each run equal to ``oracle()``'s result (the
-    ``doubles`` to SCALARS_REL of it); one ``<label>_statement`` line per
+    ``doubles`` to ``rel`` of it); one ``<label>_statement`` line per
     statement.  The launch counts are reset just before the first run and
     read just after the last, and both kernels must launch; the inputs of
     each kernel's largest launch in the warm-up runs are captured for
-    ``measure_apart``.  Returns the launches and the captured inputs."""
+    ``measure_apart``.  Returns the launches, the captured inputs and the
+    oracle's results."""
     t_phase = time.perf_counter()
     want = oracle()
     oracle_s = time.perf_counter() - t_phase
     largest = {"masked_sum": {}, "sorted_probe": {}}
+    worst = {}
 
     def check(name, table):
-        got = {c: col.to_pylist() for c, col in table.columns.items()}
-        w = want[name]
-        if name in doubles:
-            ok = got.keys() == w.keys() and all(
-                len(got[c]) == 1 and abs(got[c][0] - w[c][0])
-                <= SCALARS_REL * abs(w[c][0]) for c in w)
-        else:
-            ok = got == w
-        if not ok:
-            raise AssertionError(f"{label} {name}: {got} != oracle {w}")
+        err = check_statement(label, name, table, want, doubles, rel)
+        worst[name] = max(worst.get(name, 0.0), err)
 
     def warm_up(name, sql):
         """One run with the recorders on; a launch larger than any before
@@ -556,11 +595,13 @@ def statements_phase(torch, CK, runner, card: str, label: str,
             check(name, table)
         per_run = {k: (CK.LAUNCHES[k] - before[k]) // (1 + SCALARS_TIMED_RUNS)
                    for k in CK.LAUNCHES}
+        extra = {"max_rel_err": worst[name], "rel": rel} \
+            if name in doubles else {}
         say(f"{label}_statement", name=name, sf=SF,
             warm_ms_median=statistics.median(runs), warm_ms=runs,
             host_syncs=runner.last_host_syncs, launches_per_run=per_run,
             result=want[name] if len(str(want[name])) < 300 else None,
-            equals_oracle=True, card=card)
+            equals_oracle=True, card=card, **extra)
     launches = dict(CK.LAUNCHES)
     for k, v in launches.items():
         if v <= 0 or "inputs" not in largest[k]:
@@ -570,7 +611,7 @@ def statements_phase(torch, CK, runner, card: str, label: str,
                  for k, v in largest.items()},
         oracle_seconds=round(oracle_s, 3),
         seconds=round(time.perf_counter() - t_phase, 3))
-    return {"launches": launches, "captured": {
+    return {"launches": launches, "want": want, "captured": {
         f"{label}_largest_{v['statement']}": (k, v["inputs"])
         for k, v in largest.items()}}
 
@@ -587,6 +628,48 @@ def strings_dates_phase(torch, CK, NO, runner, card: str) -> dict:
     return statements_phase(
         torch, CK, runner, card, "strings_dates", NO.STRINGS_DATES,
         lambda: NO.strings_dates(NO.Tables(runner.datasource)))
+
+
+AGG_STREAM_SLICE = 131072  # order units a slice: 12 slices of SF1 lineitem
+AGG_STREAM_MIN_SLICES = 8
+
+
+def aggregates_patterns_phase(torch, CK, NO, runner, card: str) -> dict:
+    """Phase 6d: the ``NO.AGGREGATES_PATTERNS`` statements (DOUBLEs to
+    SCALARS_REL: the corr family of int64 arguments and geometric_mean's
+    logarithms sum exactly), then the ``AGGREGATES_STREAMED``
+    ones through ``run_sql_streaming``, AGG_STREAM_SLICE order units a
+    slice, each equal to the oracle, streamed, in at least
+    AGG_STREAM_MIN_SLICES slices."""
+    out = statements_phase(
+        torch, CK, runner, card, "aggregates_patterns",
+        NO.AGGREGATES_PATTERNS,
+        lambda: NO.aggregates_patterns(NO.Tables(runner.datasource)),
+        NO.AGGREGATES_PATTERNS_DOUBLE)
+    ds = runner.datasource
+    before = dict(CK.LAUNCHES)
+    for name in NO.AGGREGATES_STREAMED:
+        ds.ingest_slices = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = runner.run_sql_streaming(NO.AGGREGATES_PATTERNS[name],
+                                         slice_rows=AGG_STREAM_SLICE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = check_statement("aggregates_streamed", name, table,
+                              out["want"], NO.AGGREGATES_PATTERNS_DOUBLE)
+        if not runner.last_streamed or ds.ingest_slices < \
+                AGG_STREAM_MIN_SLICES:
+            raise AssertionError(
+                f"aggregates_streamed {name}: streamed "
+                f"{runner.last_streamed} in {ds.ingest_slices} slices")
+        say("aggregates_streamed", name=name, sf=SF, ms=ms,
+            slices=ds.ingest_slices, slice_units=AGG_STREAM_SLICE,
+            host_syncs=runner.last_host_syncs, max_rel_err=err,
+            equals_oracle=True, card=card)
+    out["streamed_launches"] = {k: CK.LAUNCHES[k] - before[k]
+                                for k in CK.LAUNCHES}
+    return out
 
 
 # ---------------------------------------------------------------- tpcds
@@ -1537,6 +1620,7 @@ def main() -> int:
     say("like", **measure_like(torch, runner, NO))
     scalars = scalars_phase(torch, CK, NO, runner, card)
     strings_dates = strings_dates_phase(torch, CK, NO, runner, card)
+    aggregates = aggregates_patterns_phase(torch, CK, NO, runner, card)
     tpcds = tpcds_phase(torch, CK)
     server = server_phase(torch, CK, NO, requests, want, card)
     tiers = tiers_phase(torch, CK, NO, runner, requests, want, free, card)
@@ -1545,6 +1629,7 @@ def main() -> int:
     # fresh process
     for shape in measure_apart(torch, {**scalars["captured"],
                                        **strings_dates["captured"],
+                                       **aggregates["captured"],
                                        **tpcds["captured"],
                                        **server["captured"],
                                        **tiers["captured"]}):
@@ -1556,6 +1641,9 @@ def main() -> int:
         by_path = {"tpch": launches[name],
                    "scalars": scalars["launches"][name],
                    "strings_dates": strings_dates["launches"][name],
+                   "aggregates_patterns": aggregates["launches"][name],
+                   "aggregates_streamed":
+                       aggregates["streamed_launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

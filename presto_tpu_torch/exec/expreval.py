@@ -40,7 +40,7 @@ import datetime as dt
 import json
 import math
 import re
-from typing import Optional
+from typing import Optional, Tuple
 from urllib.parse import quote_plus, unquote_plus, urlsplit
 
 import numpy as np
@@ -90,12 +90,21 @@ def _dict_predicate(col: DCol, host_pred) -> torch.Tensor:
         col.values.to(torch.int64)]
 
 
+def shifted_name(e: ir.Shifted) -> str:
+    """The column under which MATCH_RECOGNIZE materialises a PREV/NEXT
+    reference before its DEFINE predicates evaluate."""
+    return f"#sh{e.offset}_{e.arg.name}"
+
+
 def eval_expr(expr: ir.Expr, chunk: Chunk) -> DCol:
     n = chunk.n_rows
     dev = chunk.mask.device
 
     if isinstance(expr, ir.ColumnRef):
         return chunk.cols[expr.name]
+
+    if isinstance(expr, ir.Shifted):  # materialised by MATCH_RECOGNIZE
+        return chunk.cols[shifted_name(expr)]
 
     if isinstance(expr, ir.Literal):
         return _literal(expr, n, dev)
@@ -254,6 +263,14 @@ def dcol_to_bytes(c: DCol) -> DCol:
         return c
     if c.kind != DICT:
         raise NotImplementedError(f"{c.kind} {c.dtype} as a string column")
+    mat, lens = dictionary_bytes(c)
+    codes = c.values.to(torch.int64)
+    return DCol(c.dtype, BYTES, mat[codes], lens[codes], c.validity)
+
+
+def dictionary_bytes(c: DCol) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(byte matrix, lengths) of a DICT column's dictionary entries, built
+    on the host, on the column's device (one zero row when empty)."""
     strs = [str(s).encode("ascii") for s in c.dictionary.strings]
     w = max([len(b) for b in strs] + [1])
     mat = np.zeros((max(len(strs), 1), w), np.uint8)
@@ -262,9 +279,7 @@ def dcol_to_bytes(c: DCol) -> DCol:
         mat[i, :len(b)] = np.frombuffer(b, np.uint8)
         lens[i] = len(b)
     dev = c.values.device
-    codes = c.values.to(torch.int64)
-    return DCol(c.dtype, BYTES, torch.from_numpy(mat).to(dev)[codes],
-                torch.from_numpy(lens).to(dev)[codes], c.validity)
+    return torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
 
 
 def _pad_bytes(v: torch.Tensor, w: int) -> torch.Tensor:

@@ -45,8 +45,11 @@ package.
 Aggregates: count, sum, avg (a DOUBLE for integer and DOUBLE inputs),
 the variance family (the JAX package's one-pass formula), min/max of
 integers, dates, decimals and DOUBLEs, arbitrary, approx_distinct (HLL
-registers, ``ops/hll.py``) and count(DISTINCT x) through a second dedup
-pass over (group, value) pairs.  A DOUBLE key
+registers, ``ops/hll.py``), count(DISTINCT x) through a second dedup
+pass over (group, value) pairs, and ``MORE_FUNCS`` (``_agg_more``, one
+code path for grouped and global by ``Groups``/``Whole``): bool_and/or,
+bitwise_and/or_agg, checksum, geometric_mean, the corr family, min_by/
+max_by and approx_percentile (exact).  A DOUBLE key
 (group, join, sort) is its order-preserving int64 image.  A NULL sort key
 (ORDER BY and a window's ORDER BY) sorts after every value in both
 directions, Trino's default (the JAX package puts it first under DESC,
@@ -57,9 +60,13 @@ compare their ranks in the sorted union of both, and a string key beside
 a BYTES key compares byte packs of one width (the JAX package compares
 the codes of different dictionaries).
 
+MATCH_RECOGNIZE (``_exec_match_recognize``) sorts once by (partition,
+order) and runs the pattern's DFA over every start row in lockstep
+(``ops/pattern.py``).
+
 Not ported yet (they raise ``NotImplementedError`` naming the operator or
-aggregate): MATCH_RECOGNIZE, UNNEST, DISTINCT on any aggregate but count,
-and nested-value aggregates.
+aggregate): UNNEST, DISTINCT on any aggregate but count, and nested-value
+aggregates (``min(x, n)``, ``array_agg``, ...).
 """
 
 from __future__ import annotations
@@ -79,15 +86,19 @@ from ..ops import hashing as HASH
 from ..ops import hashtable as HT
 from ..ops import hll as HLL
 from ..ops import int128 as I128
+from ..ops import pattern as PT
 from ..ops import sort as SORT
 from ..ops import window as W
+from ..sql import ir
 from ..utils.memory import chunk_bytes, col_bytes
 from .columns import Chunk, DCol
 from .expreval import (_pad_bytes, _rank_in, as_double, dcol_to_bytes,
-                       eval_expr, eval_predicate, refuse_row_numbering)
-from .plan import (VARIANCE_FUNCS, AggSpec, PhysConcat, PhysFilter,
-                   PhysGroupId, PhysHashAggregate, PhysHashJoin, PhysLimit,
-                   PhysMaterial, PhysOp, PhysProject, PhysScalarBind,
+                       dictionary_bytes, eval_expr, eval_predicate, refuse_row_numbering,
+                       shifted_name)
+from .plan import (CORR_FUNCS, VARIANCE_FUNCS, AggSpec, PhysConcat,
+                   PhysFilter, PhysGroupId, PhysHashAggregate, PhysHashJoin,
+                   PhysLimit, PhysMatchRecognize, PhysMaterial, PhysOp,
+                   PhysProject, PhysScalarBind,
                    PhysScan, PhysSort, PhysWindow, WindowSpec,
                    _agg_output_type, _scale_of)
 
@@ -177,6 +188,8 @@ def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
     if isinstance(plan, PhysGroupId):
         return _groupid(execute(plan.child, ctx), plan.keys, plan.sets,
                         plan.gid_name)
+    if isinstance(plan, PhysMatchRecognize):
+        return _exec_match_recognize(plan, ctx)
     raise NotImplementedError(f"{type(plan).__name__} on the torch path")
 
 
@@ -185,7 +198,7 @@ def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
 # aggregates whose result is no value of their argument (a count, a
 # sketch) or is one of its rows gathered whole, offsets included
 KEEPS_ZONE = ("count", "count_star", "approx_distinct", "arbitrary",
-              "any_value")
+              "any_value", "min_by", "max_by", "approx_percentile")
 
 
 def refuse_zoned(c: DCol, what: str) -> None:
@@ -379,6 +392,22 @@ def dict_extreme(c: DCol, reduce, validity, dtype) -> DCol:
                 dictionary=c.dictionary)
 
 
+def _value_packs(c: DCol) -> List[torch.Tensor]:
+    """Integer tensors, most significant first, that order a column's rows
+    by value: the packs of a BYTES column, the (hi signed, lo unsigned)
+    words of a long decimal, a DICT code's rank among its dictionary's
+    strings, a DOUBLE's order-preserving bits, else the values."""
+    if c.kind == BYTES:
+        return SORT.bytes_sort_keys(c.values, c.lengths)
+    if c.values.dim() == 2:
+        return I128.sort_keys(*I128.unpack(c.values))
+    if c.kind == DICT:
+        return [dict_order(c)[0][c.values.to(torch.int64)]]
+    if c.values.is_floating_point():
+        return [SORT.f64_sort_key(c.values)]
+    return [c.values]
+
+
 def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
     """Sort-key exprs → (integer tensor, descending) pairs; a BYTES key
     gives one pair per 8-byte pack, a long decimal two (``sort_keys``).
@@ -388,17 +417,7 @@ def _sort_key_arrays(chunk: Chunk, keys) -> List[Tuple[torch.Tensor, bool]]:
     karrs: List[Tuple[torch.Tensor, bool]] = []
     for e, desc in keys:
         c = eval_expr(e, chunk)
-        if c.kind == BYTES:
-            packs = SORT.bytes_sort_keys(c.values, c.lengths)
-        elif c.values.dim() == 2:  # long decimal: (hi signed, lo unsigned)
-            packs = I128.sort_keys(*I128.unpack(c.values))
-        elif c.kind == DICT:
-            # order by string value: host-computed rank of each code
-            packs = [dict_order(c)[0][c.values.to(torch.int64)]]
-        elif c.values.is_floating_point():
-            packs = [SORT.f64_sort_key(c.values)]
-        else:
-            packs = [c.values]
+        packs = _value_packs(c)
         if c.validity is not None:
             karrs.append(((~c.validity).to(torch.int8), False))
             packs = [torch.where(c.validity, p, 0) for p in packs]
@@ -664,6 +683,95 @@ def _frame_lo_hi(frame, chunk: Chunk, plan: PhysWindow, perm, part_start,
                                  scaled(frame[2])), desc)
 
 
+# ---------------------------------------------------------------- row patterns
+
+def _exec_match_recognize(plan: PhysMatchRecognize,
+                          ctx: ExecContext) -> Chunk:
+    """MATCH_RECOGNIZE, ONE ROW or ALL ROWS PER MATCH, AFTER MATCH SKIP
+    PAST LAST ROW (the JAX package's ``_exec_match_recognize``): one
+    stable sort by the partition keys (NULLs one partition, as in GROUP
+    BY) and the order keys (as in ORDER BY), the PREV/NEXT columns (NULL
+    across a partition's edge), each DEFINE predicate one bit of a row's
+    code, the DFA over every start and the skips (``ops/pattern.py``),
+    then the measures over the sorted rows.  ``match_number()`` counts
+    the matches of each partition from 1 (the JAX package counts them
+    across the whole input).  Host reads: the compaction, the pattern's
+    early stops and partition count, the window check."""
+    child = _maybe_compact(execute(plan.child, ctx), ctx)
+    n = child.n_rows
+    dev = child.mask.device
+    pk = [(k, False) for k in _group_key_arrays(child, plan.partition)]
+    keys = pk + _sort_key_arrays(child, plan.order) or [(torch.zeros(
+        (n,), dtype=torch.int64, device=dev), False)]
+    perm = SORT.argsort_multi(keys, child.mask)
+    smask = child.mask[perm]
+    part_start, _ = W.make_boundaries([k[perm] for k, _ in keys], len(pk),
+                                      smask)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    cols = {name: c.take(perm) for name, c in child.cols.items()}
+    for _, pred in plan.defines:
+        for sub in ir.walk(pred):
+            name = isinstance(sub, ir.Shifted) and shifted_name(sub)
+            if name and name not in cols:
+                src = idx + sub.offset
+                at = src.clamp(0, max(n - 1, 0))
+                cols[name] = cols[sub.arg.name].take(at, valid=(
+                    (src >= 0) & (src < n) & smask[at]
+                    & (part_start[at] == part_start)))
+    rows = Chunk(cols, smask)
+    code = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for i, (_, pred) in enumerate(plan.defines):
+        hit = eval_predicate(pred, rows) & smask
+        code = code | (hit.to(torch.int32) << i)
+    code = torch.where(smask, code, -1)
+    compiled = PT.compile_pattern(plan.pattern, [s for s, _ in plan.defines])
+
+    def read(t):
+        return _sync_int(ctx, t)
+    new_part = part_start == idx
+    mlen = PT.match_lengths(code, new_part, compiled, plan.window, read)
+    sel = PT.select_matches(mlen, smask, new_part, read)
+    if read((sel & (mlen >= plan.window)).any()):
+        raise NotImplementedError(
+            f"match exceeds the {plan.window}-row window bound")
+    taken = torch.cumsum(sel.to(torch.int64), 0)
+    # the matches before each row's partition, subtracted
+    mno = taken - (taken - sel.to(torch.int64))[part_start]
+    mlen = mlen.to(torch.int64)
+    out = {pe.name: cols[pe.name] for pe in plan.partition}
+    if plan.all_rows:
+        # ALL ROWS PER MATCH: a row belongs to the latest match started at
+        # or before it that still covers it; RUNNING measures (count =
+        # rows so far, last = the current row)
+        s_r = torch.cummax(torch.where(sel, idx, -1), 0).values
+        s_c = s_r.clamp(0, max(n - 1, 0))
+        keep = ((s_r >= 0) & (idx < s_r + mlen[s_c])
+                & (part_start[s_c] == part_start) & smask)
+        for mname, func, arg in plan.measures:
+            if func == "count":
+                out[mname] = DCol(T.BIGINT, PLAIN, idx - s_r + 1)
+            elif func == "match_number":
+                out[mname] = DCol(T.BIGINT, PLAIN, mno[s_c])
+            elif func == "first":
+                out[mname] = eval_expr(arg, rows).take(s_c, valid=keep)
+            else:
+                out[mname] = eval_expr(arg, rows)
+        for name in plan.passthrough:
+            out[name] = cols[name]
+        return _maybe_compact(Chunk(out, keep), ctx)
+    last = (idx + mlen - 1).clamp(0, max(n - 1, 0))
+    for mname, func, arg in plan.measures:
+        if func == "count":
+            out[mname] = DCol(T.BIGINT, PLAIN, mlen)
+        elif func == "match_number":
+            out[mname] = DCol(T.BIGINT, PLAIN, mno)
+        elif func == "first":
+            out[mname] = eval_expr(arg, rows)
+        else:
+            out[mname] = eval_expr(arg, rows).take(last, valid=sel)
+    return _maybe_compact(Chunk(out, sel & smask), ctx)
+
+
 # ---------------------------------------------------------------- grouping sets
 
 def _groupid(chunk: Chunk, keys, sets, gid_name: str) -> Chunk:
@@ -855,6 +963,299 @@ def _g_sum128(vals, mask):
     return I128.g_sum128_from_i64(vals, mask)
 
 
+GOLDEN64 = 0x9E3779B97F4A7C15 - (1 << 64)  # checksum's multiplier, int64
+
+# aggregates computed once for both forms by ``_agg_more``
+MORE_FUNCS = frozenset({"bool_and", "bool_or", "bitwise_and_agg",
+                        "bitwise_or_agg", "checksum", "geometric_mean",
+                        "min_by", "max_by", "approx_percentile"} | CORR_FUNCS)
+
+
+class Groups:
+    """The grouped aggregation's reductions: rows into ``capacity`` slots
+    by ``slot``; ``of_row`` reads each row's group's value back."""
+
+    def __init__(self, slot, capacity: int, gvalid):
+        self.slot, self.capacity, self.gvalid = slot, capacity, gvalid
+
+    def count(self, m):
+        return A.seg_count(self.slot, m, self.capacity)
+
+    def sum(self, v, m, dtype):
+        return A.seg_sum(v, self.slot, m, self.capacity, dtype)
+
+    def min(self, v, m):
+        return A.seg_min(v, self.slot, m, self.capacity)
+
+    def max(self, v, m):
+        return A.seg_max(v, self.slot, m, self.capacity)
+
+    def any(self, flags, m):
+        return A.seg_any(flags, self.slot, m, self.capacity)
+
+    def bitand(self, v, m):
+        return A.seg_bitand(v, self.slot, m, self.capacity)
+
+    def bitor(self, v, m):
+        return A.seg_bitor(v, self.slot, m, self.capacity)
+
+    def sum128(self, v, m):
+        """Exact int128 sums of int64 or packed-int128 addends, packed."""
+        return I128.pack(*_seg_sum128(v, self.slot, m, self.capacity))
+
+    def of_row(self, per_group):
+        return per_group[self.slot.clamp(min=0).to(torch.int64)]
+
+
+class Whole(Groups):
+    """The same reductions over every row into one slot, by the global
+    aggregation's one-slot forms (``g_sum`` of int64 is ``masked_sum``'s
+    dispatch)."""
+
+    def __init__(self, n: int, device):
+        super().__init__(torch.zeros((n,), dtype=torch.int64, device=device),
+                         1, torch.ones((1,), dtype=torch.bool, device=device))
+
+    def count(self, m):
+        return A.g_count(m).reshape(1)
+
+    def sum(self, v, m, dtype):
+        return A.g_sum(v, m, dtype).reshape(1)
+
+    def min(self, v, m):
+        return A.g_min(v, m).reshape(1)
+
+    def max(self, v, m):
+        return A.g_max(v, m).reshape(1)
+
+    def any(self, flags, m):
+        return (flags & m).any().reshape(1)
+
+    def bitand(self, v, m):
+        return A.g_bitand(v, m).reshape(1)
+
+    def bitor(self, v, m):
+        return A.g_bitor(v, m).reshape(1)
+
+    def sum128(self, v, m):
+        return I128.pack(*(w.reshape(1) for w in _g_sum128(v, m)))
+
+    def of_row(self, per_group):
+        return per_group
+
+
+def value_hash(c: DCol) -> torch.Tensor:
+    """Each row's uint32 hash by value, for checksum and approx_distinct:
+    a string over its own bytes (``hash_strings``; a DICT entry hashed
+    once and gathered by code), so that slices, partitions and chunks
+    whose dictionaries or widths differ agree; else the key tensors
+    (``_col_keys``: a DOUBLE's order-preserving bits)."""
+    if c.kind == DICT:
+        mat, lens = dictionary_bytes(c)
+        return HASH.hash_strings(SORT.bytes_sort_keys(mat, lens),
+                                 lens)[c.values.to(torch.int64)]
+    if c.kind == BYTES:
+        return HASH.hash_strings(SORT.bytes_sort_keys(c.values, c.lengths),
+                                 c.lengths)
+    return HASH.hash_keys(_col_keys(c))
+
+
+def checksum_terms(c: DCol) -> torch.Tensor:
+    """Each row's checksum contribution: its ``value_hash`` plus one,
+    times the 64-bit golden ratio, wrapping in int64; summed, the JAX
+    package's order-independent checksum (which hashes a string's
+    dictionary code or its padded packs instead)."""
+    return (value_hash(c) + 1) * GOLDEN64
+
+
+# the corr family's moment sums: float64 (``n`` and the one-pass sums)
+# for every argument, and exact int128 ones (``e*``) when both arguments
+# are int64 values (integers, short decimals)
+CORR_FLOAT = ("n", "sx", "sy", "sxy", "sxx", "syy")
+CORR_EXACT = ("ex", "ey", "exy", "exx", "eyy")
+_EXACT_LIMIT = 2.0 ** 120  # any |int128| the exact finalize forms stays below
+
+
+def corr_moments(spec: AggSpec, c: DCol, chunk: Chunk, vmask,
+                 R: Groups) -> Dict[str, torch.Tensor]:
+    """The moment sums over the rows where both arguments are non-NULL, y
+    the first argument and x the second: ``CORR_FLOAT`` (n as float64),
+    and ``CORR_EXACT`` (packed int128, in the arguments' unscaled units)
+    when both are int64 values."""
+    x = eval_expr(spec.arg2, chunk)
+    refuse_zoned(x, spec.func)
+    if c.kind != PLAIN or x.kind != PLAIN:
+        raise NotImplementedError(f"{spec.func} of a string column")
+    both = vmask & x.valid_or_true()
+    yf, xf = as_double(c), as_double(x)
+    out = dict(zip(CORR_FLOAT, [R.count(both).to(torch.float64)] + [
+        R.sum(v, both, torch.float64)
+        for v in (xf, yf, xf * yf, xf * xf, yf * yf)]))
+    if _exact_corr(c) and _exact_corr(x):
+        X, Y = x.values.to(torch.int64), c.values.to(torch.int64)
+
+        def prod(a, b):  # exact: |a b| < 2^126
+            return I128.pack(*I128.mul(*I128.from_i64(a), *I128.from_i64(b)))
+        out.update(zip(CORR_EXACT, [R.sum128(v, both) for v in (
+            X, Y, prod(X, Y), prod(X, X), prod(Y, Y))]))
+    return out
+
+
+LOG_UNIT = 2.0 ** 52  # fixed-point unit of geometric_mean's exact log sum
+
+
+def log_sums(c: DCol, vmask, R: Groups) -> Dict[str, torch.Tensor]:
+    """geometric_mean's sums of ln x: ``slog`` in float64 (it carries a
+    -inf, +inf or NaN), and ``qlog``, each finite ln x rounded to a
+    multiple of 2^-52 (|ln x| < 746, so under 2^62) and summed exactly in
+    int128: the mean of the logs comes out to about an ulp, in any
+    order, sliced or not."""
+    ln = torch.log(as_double(c))
+    q = torch.where(torch.isfinite(ln), torch.round(ln * LOG_UNIT), 0.0)
+    return {"slog": R.sum(ln, vmask, torch.float64),
+            "qlog": R.sum128(q.to(torch.int64), vmask)}
+
+
+def geometric_mean(m: Dict[str, torch.Tensor], cnt) -> torch.Tensor:
+    """``exp(Σ ln x / n)`` from ``log_sums``: the exact sum where every
+    logarithm was finite, else the float one (0 after a zero, NaN after
+    a negative)."""
+    nf = cnt.clamp_min(1).to(torch.float64)
+    exact = I128.to_f64(*I128.unpack(m["qlog"])) / LOG_UNIT
+    return torch.exp(torch.where(torch.isfinite(m["slog"]), exact,
+                                 m["slog"]) / nf)
+
+
+def _exact_corr(c: DCol) -> bool:
+    return (c.values.dim() == 1 and not c.values.is_floating_point()
+            and c.values.dtype != torch.bool)
+
+
+def corr_finalize(spec: AggSpec, m: Dict[str, torch.Tensor]):
+    """(value, validity) of a corr-family aggregate from its moment sums:
+    the JAX package's one-pass formulas (``_corr_finalize``) over the
+    float64 sums, and, where the exact sums are there and every product
+    below stays under 2^120, the same functions of the exactly centred
+    int128 sums (n Σxx - (Σx)^2, ...), rounded once each, so that a
+    result that cancels (an intercept near 0) is exact to a few ulps."""
+    func = spec.func
+    n, sx, sy, sxy, sxx, syy = (m[k] for k in CORR_FLOAT)
+    nf = n.clamp_min(1.0)
+    dxy = sxy - sx * sy / nf
+    dxx = sxx - sx * sx / nf
+    dyy = syy - sy * sy / nf
+    if func in ("covar_pop", "covar_samp"):
+        div = nf if func == "covar_pop" else (n - 1.0).clamp_min(1.0)
+        v, ok = dxy / div, n >= (1 if func == "covar_pop" else 2)
+    elif func == "corr":
+        den = torch.sqrt((dxx * dyy).clamp_min(0.0))
+        v, ok = dxy / den.clamp_min(1e-300), (n >= 1) & (den > 0)
+    else:
+        slope = dxy / dxx.clamp_min(1e-300)
+        ok = (n >= 1) & (dxx > 0)
+        v = slope if func == "regr_slope" else (sy - slope * sx) / nf
+    if "ex" not in m:
+        return v, ok
+    a, b = _scale_of(spec.arg2.dtype), _scale_of(spec.arg.dtype)
+    ex, ey, exy, exx, eyy = (I128.unpack(m[k]) for k in CORR_EXACT)
+    n64 = n.to(torch.int64)
+
+    def centred(s2, s, t):  # n Σst - Σs Σt
+        return I128.sub(*I128.mul_i64(*s2, n64), *I128.mul(*s, *t))
+    f = I128.to_f64
+    cxy, cxx, cyy = (centred(exy, ex, ey), centred(exx, ex, ex),
+                     centred(eyy, ey, ey))
+    # the guard, from the float sums in unscaled units
+    ux, uy = sx * 10.0 ** a, sy * 10.0 ** b
+    uxx, uyy, uxy = sxx * 10.0 ** (2 * a), syy * 10.0 ** (2 * b), \
+        sxy * 10.0 ** (a + b)
+    fits = ((nf * uxx < _EXACT_LIMIT) & (nf * uyy < _EXACT_LIMIT)
+            & (ux * ux < _EXACT_LIMIT) & (uy * uy < _EXACT_LIMIT)
+            & ((uy * uxx).abs() + (ux * uxy).abs() < _EXACT_LIMIT))
+    if func in ("covar_pop", "covar_samp"):
+        div = nf * (nf if func == "covar_pop" else (n - 1.0).clamp_min(1.0))
+        ev, eok = f(*cxy) / div / 10.0 ** (a + b), ok
+    elif func == "corr":
+        den = torch.sqrt(f(*cxx) * f(*cyy))
+        ev, eok = f(*cxy) / den.clamp_min(1e-300), (n >= 1) & (den > 0)
+    else:
+        fxx = f(*cxx)
+        eok = (n >= 1) & (fxx > 0)
+        if func == "regr_slope":
+            ev = f(*cxy) / fxx.clamp_min(1e-300) * 10.0 ** (a - b)
+        else:  # (Σy Σxx - Σx Σxy) / (n Σxx - (Σx)^2)
+            num = I128.sub(*I128.mul(*ey, *exx), *I128.mul(*ex, *exy))
+            ev = f(*num) / fxx.clamp_min(1e-300) / 10.0 ** b
+    return torch.where(fits, ev, v), torch.where(fits, eok, ok)
+
+
+def _by_key(spec: AggSpec, chunk: Chunk):
+    """min_by/max_by's ordering key as (int64 order image, validity): a
+    DICT key's string rank, a DOUBLE's order-preserving bits; a key that
+    is no single integer (BYTES, a long decimal) raises."""
+    k = eval_expr(spec.arg2, chunk)
+    if k.kind == BYTES or k.values.dim() == 2:
+        raise NotImplementedError(
+            f"{spec.func} keyed by a {k.kind} {k.dtype} column on the "
+            "torch path")
+    return _value_packs(k)[0].to(torch.int64), k.valid_or_true()
+
+
+def _agg_more(spec: AggSpec, c: DCol, chunk: Chunk, mask, R: Groups) -> DCol:
+    """One of ``MORE_FUNCS`` over the rows in ``mask``, grouped or global
+    by ``R``.  min_by/max_by: among the rows whose key is not NULL, the
+    lowest row id attaining its group's key extreme (the extreme from
+    the dtype-extreme ``seg_min``/``seg_max``, no winner → NULL), its
+    value gathered whole.  approx_percentile: exact nearest rank,
+    ``ceil(q n) - 1``, from one sort by (group, value).  geometric_mean:
+    ``exp(Σ ln x / n)``, unclamped (0 for a zero, NaN for a negative),
+    the logarithms summed exactly in fixed point (``log_sums``)."""
+    f = spec.func
+    n = chunk.n_rows
+    vmask = mask & c.valid_or_true()
+    if f in ("min_by", "max_by"):
+        img, kvalid = _by_key(spec, chunk)
+        kmask = mask & kvalid
+        ext = (R.min if f == "min_by" else R.max)(img, kmask)
+        win = kmask & (img == R.of_row(ext))
+        ridx = torch.arange(n, dtype=torch.int64, device=mask.device)
+        return c.take(R.min(ridx, win).clamp(max=max(n - 1, 0)),
+                      valid=R.gvalid & (R.count(win) > 0))
+    if f == "approx_percentile":
+        slotk = torch.where(vmask, R.slot.to(torch.int64), R.capacity)
+        perm = SORT.argsort_multi([(slotk, False)] + [
+            (p, False) for p in _value_packs(c)])
+        cnt = R.count(vmask)
+        nth = torch.minimum(
+            (torch.ceil(spec.param * cnt.to(torch.float64)).to(torch.int64)
+             - 1).clamp_min(0), (cnt - 1).clamp_min(0))
+        pos = torch.cumsum(cnt, 0) - cnt + nth
+        return c.take(perm[pos.clamp(max=max(n - 1, 0))],
+                      valid=R.gvalid & (cnt > 0))
+    if f in CORR_FUNCS:
+        v, ok = corr_finalize(spec, corr_moments(spec, c, chunk, vmask, R))
+        return DCol(T.DOUBLE, PLAIN, v, validity=R.gvalid & ok)
+    ok = R.count(vmask) > 0
+    if f == "checksum":
+        v = R.sum(checksum_terms(c), vmask, torch.int64)
+    elif c.kind != PLAIN:
+        raise NotImplementedError(
+            f"{f}({c.dtype}, {c.kind}) on the torch path")
+    elif f == "geometric_mean":
+        v = geometric_mean(log_sums(c, vmask, R), R.count(vmask))
+    elif c.values.dim() == 2:
+        raise NotImplementedError(f"{f}({c.dtype}) on the torch path")
+    elif f == "bool_and":
+        v = ~R.any(~c.values.to(torch.bool), vmask)
+    elif f == "bool_or":
+        v = R.any(c.values.to(torch.bool), vmask)
+    else:  # bitwise_and_agg / bitwise_or_agg
+        if c.values.is_floating_point():
+            raise NotImplementedError(f"{f}({c.dtype}) on the torch path")
+        v = (R.bitand if f == "bitwise_and_agg" else R.bitor)(c.values, vmask)
+    return DCol(_agg_output_type(spec), PLAIN, v, validity=R.gvalid & ok)
+
+
 def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
     mask = chunk.mask & (slot >= 0)
     if spec.func == "count_star":
@@ -863,6 +1264,8 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
     c = eval_expr(spec.arg, chunk)
     if spec.func not in KEEPS_ZONE:
         refuse_zoned(c, spec.func)
+    if spec.func in MORE_FUNCS:
+        return _agg_more(spec, c, chunk, mask, Groups(slot, capacity, gvalid))
     vmask = mask & c.valid_or_true()
     vals = c.values
     ot = _agg_output_type(spec)
@@ -870,7 +1273,7 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         return DCol(T.BIGINT, PLAIN, A.seg_count(slot, vmask, capacity),
                     validity=gvalid)
     if spec.func == "approx_distinct":
-        regs = HLL.group_state(HASH.hash_keys(_col_keys(c)), slot, vmask,
+        regs = HLL.group_state(value_hash(c), slot, vmask,
                                capacity)
         return DCol(T.BIGINT, PLAIN, HLL.estimate(regs), validity=gvalid)
     dbl = isinstance(c.dtype, T.DoubleType)
@@ -932,6 +1335,7 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
 
 def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
     out: Dict[str, DCol] = {}
+    whole = None
     for spec in plan.aggs:
         if spec.func == "count_star":
             out[spec.name] = DCol(T.BIGINT, PLAIN,
@@ -952,8 +1356,12 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         if spec.func == "count":
             out[spec.name] = DCol(T.BIGINT, PLAIN, A.g_count(m).reshape(1))
             continue
+        if spec.func in MORE_FUNCS:
+            whole = whole or Whole(chunk.n_rows, chunk.mask.device)
+            out[spec.name] = _agg_more(spec, c, chunk, chunk.mask, whole)
+            continue
         if spec.func == "approx_distinct":
-            regs = HLL.global_state(HASH.hash_keys(_col_keys(c)), m)
+            regs = HLL.global_state(value_hash(c), m)
             out[spec.name] = DCol(T.BIGINT, PLAIN,
                                   HLL.estimate(regs).reshape(1))
             continue

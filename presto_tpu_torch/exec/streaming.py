@@ -11,7 +11,7 @@ never the table.
 
 A streamable plan is an aggregation over Filter/Project over one scan of
 a connector table, every aggregate with a mergeable state and none
-DISTINCT; a HAVING filter, projections, a sort and a limit above it run
+DISTINCT, grouped or global (one group, present over no rows); a HAVING filter, projections, a sort and a limit above it run
 on the merged result.  Any other plan (a join below the aggregation, a
 memory table) gets None and the caller runs it whole (``run_sql``): a
 rule on the plan's shape, not a fallback.  A filter on the table's
@@ -28,24 +28,18 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data import types as T
-from ..data.column import DICT, PLAIN
+from ..data.column import DICT
 from ..ops import hashtable as HT
-from ..ops import int128 as I128
 from ..parallel import distributed as D
 from ..sql import ir
 from ..sql.planner import domains as DOM
 from . import physical as PH
 from .columns import Chunk, DCol, Dictionary
 from .expreval import refuse_row_numbering
-from .plan import (AggSpec, PhysFilter, PhysHashAggregate, PhysLimit,
-                   PhysMaterial, PhysOp, PhysProject, PhysScan, PhysSort,
-                   _agg_output_type)
+from .plan import (PhysFilter, PhysHashAggregate, PhysLimit, PhysMaterial,
+                   PhysOp, PhysProject, PhysScan, PhysSort)
 
 EAGER_MERGE = 8  # partial chunks kept before they merge into one
-# how the global path merges each partial column
-_GLOBAL_MERGE = {"count": "sum", "count_star": "sum", "sum": "sum",
-                 "min": "min", "max": "max"}
 
 
 def find_streamable_agg(plan: PhysOp
@@ -180,8 +174,6 @@ def run_streaming_agg(ds, plan: PhysOp, ctx: PH.ExecContext,
         lo, cnt = 0, min(total, 1)
     refuse_row_numbering(_evaluated(agg), "a streamed scan")
     slices = _slices(ds, scan, lo, lo + cnt, max(int(slice_rows), 1))
-    if not agg.groups:
-        return _stream_global(above, agg, slices, ctx)
     partials: List[Chunk] = []
     specs = None
     for sl in slices:
@@ -256,7 +248,11 @@ def _live(chunk: Chunk, ctx) -> Chunk:
 
 def _partial(agg: PhysHashAggregate, pre: Chunk, ctx):
     """One slice's PARTIAL states, compacted to its live groups, and
-    their [(state column, merge function)]."""
+    their [(state column, merge function)].  A global aggregation's
+    slice has one group, its one row, and no host read."""
+    if not agg.groups:
+        part, specs, _ = D.partial_agg_states(agg, pre, 1)
+        return part, specs
     part, specs = _grow(ctx, lambda cap: D.partial_agg_states(agg, pre, cap),
                         _capacity(ctx, pre, agg.ndv_hint))
     return _live(part, ctx), specs
@@ -279,45 +275,3 @@ def _merge_states_only(agg: PhysHashAggregate, partials: Chunk, specs,
 
     out, = _grow(ctx, step, _capacity(ctx, partials, agg.ndv_hint))
     return _live(out, ctx)
-
-
-def _stream_global(above, agg: PhysHashAggregate, slices, ctx):
-    """A global aggregation (no GROUP BY): each slice's one-row partial
-    aggregate, ``avg`` split into its sum and count (the reference's
-    PARTIAL step), then one global aggregation over the partial rows:
-    counts and sums merge as sums, min and max as themselves.  An
-    aggregate with another state (the variance family, approx_distinct,
-    arbitrary) gets None: the caller runs the plan whole."""
-    expanded = []
-    for spec in agg.aggs:
-        if spec.func == "avg":
-            expanded += [AggSpec(f"{spec.name}#sum", "sum", spec.arg),
-                         AggSpec(f"{spec.name}#cnt", "count", spec.arg)]
-        elif spec.func in _GLOBAL_MERGE:
-            expanded.append(spec)
-        else:
-            return None
-    part_plan = PhysHashAggregate(None, (), tuple(expanded), 1)
-    parts = [PH._exec_global_agg(part_plan, PH.execute(
-        _substitute_scan(agg.child, sl), ctx)) for sl in slices]
-    merge_plan = PhysHashAggregate(None, (), tuple(
-        AggSpec(s.name, _GLOBAL_MERGE[s.func],
-                ir.ColumnRef(s.name, _agg_output_type(s)))
-        for s in expanded), 1)
-    merged = PH._exec_global_agg(merge_plan, _cat(parts))
-    cols = {}
-    for spec in agg.aggs:
-        if spec.func != "avg":
-            cols[spec.name] = merged.cols[spec.name]
-            continue
-        s = merged.cols[f"{spec.name}#sum"].values
-        n = merged.cols[f"{spec.name}#cnt"].values
-        ot = _agg_output_type(spec)
-        if T.is_decimal(spec.arg.dtype):
-            qhi, qlo = I128.div_round_half_up(
-                *I128.unpack(s), *I128.from_i64(n.clamp_min(1)))
-            v = I128.pack(qhi, qlo) if T.is_long_decimal(ot) else qlo
-        else:
-            v = s.to(torch.float64) / n.clamp_min(1)
-        cols[spec.name] = DCol(ot, PLAIN, v, validity=n > 0)
-    return _finish(above, Chunk(cols, merged.mask), ctx)

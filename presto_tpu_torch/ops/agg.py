@@ -7,6 +7,8 @@ strategies exist because colliding scatters serialise on the TPU, while
 an integer ``index_add_`` on CUDA is exact and fast.  Rows that are masked
 out, or whose group id lies outside ``[0, capacity)``, go to one spare slot
 past the end that is then cut off (JAX's ``.at[].add(mode="drop")``).
+Bitwise AND/OR have no scatter combiner in torch: the grouped ones scan
+sorted runs by doubling, the global ones reduce by halving.
 """
 
 from __future__ import annotations
@@ -64,6 +66,50 @@ def seg_max(values, group, mask, capacity):
     return _seg_extreme(values, group, mask, capacity, "amax")
 
 
+def seg_any(flags, group, mask, capacity):
+    """Per group: does any masked-in row have its flag set (a count of
+    those rows, compared with 0)."""
+    return seg_count(group, mask & flags, capacity) > 0
+
+
+def _seg_bitreduce(values, group, mask, capacity, init: int, op):
+    """Segmented bitwise AND/OR.  torch has no bitwise ``scatter_reduce_``,
+    so the rows are sorted by group once and a Hillis-Steele scan by
+    doubling runs over the sorted values, ``v[i] = op(v[i], v[i - 2^k])``
+    where both lie in one group's run; after ceil(log2 N) elementwise
+    steps each run's last element holds its group's value, and those
+    land in their slots with distinct indices.  Chosen over 64 bit
+    planes of ``seg_count`` (64 colliding scatters over every row) and
+    sized by the row count, so no host read is needed."""
+    g = _scatter_idx(group, mask, capacity)
+    order = torch.sort(g).indices
+    sg = g[order]
+    v = torch.where(sg < capacity, values[order].to(torch.int64), init)
+    n = v.shape[0]
+    k = 1
+    while k < n:
+        same = sg[k:] == sg[:-k]
+        v = torch.cat([v[:k], torch.where(same, op(v[k:], v[:-k]), v[k:])])
+        k *= 2
+    last = torch.ones_like(sg, dtype=torch.bool)
+    last[:-1] = sg[1:] != sg[:-1]
+    out = torch.full((capacity + 1,), init, dtype=torch.int64,
+                     device=values.device)
+    out[torch.where(last, sg, capacity)] = torch.where(last, v, init)
+    return out[:capacity]
+
+
+def seg_bitand(values, group, mask, capacity):
+    """Per-group bitwise AND (-1 for a group with no row)."""
+    return _seg_bitreduce(values, group, mask, capacity, -1,
+                          torch.bitwise_and)
+
+
+def seg_bitor(values, group, mask, capacity):
+    """Per-group bitwise OR (0 for a group with no row)."""
+    return _seg_bitreduce(values, group, mask, capacity, 0, torch.bitwise_or)
+
+
 # --- global (no group-by) variants: one-slot reductions ---
 
 def g_sum(values, mask, dtype=None):
@@ -79,6 +125,26 @@ def g_sum(values, mask, dtype=None):
 
 def g_count(mask):
     return mask.to(torch.int64).sum()
+
+
+def _g_bitreduce(values, mask, init: int, op):
+    """Bitwise reduction of the masked-in values by halving: pairs
+    combine until one value is left, ceil(log2 N) elementwise steps."""
+    v = torch.where(mask, values.to(torch.int64), init)
+    v = torch.cat([v, v.new_full((1,), init)])  # never empty
+    while v.shape[0] > 1:
+        if v.shape[0] % 2:
+            v = torch.cat([v, v.new_full((1,), init)])
+        v = op(v[0::2], v[1::2])
+    return v.reshape(())
+
+
+def g_bitand(values, mask):
+    return _g_bitreduce(values, mask, -1, torch.bitwise_and)
+
+
+def g_bitor(values, mask):
+    return _g_bitreduce(values, mask, 0, torch.bitwise_or)
 
 
 def g_min(values, mask):

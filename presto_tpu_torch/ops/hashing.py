@@ -55,3 +55,16 @@ def hash_keys(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     for k in keys[1:]:
         h = mix32((h + _GOLDEN + hash_i64(k)) & MASK32)
     return h
+
+
+def hash_strings(packs: Sequence[torch.Tensor],
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """uint32 hash of each string over its own big-endian 8-byte packs
+    (``ops/sort.bytes_sort_keys``; ceil(length / 8) of them, at least
+    one): ``hash_keys`` of those packs, so that a string hashes the same
+    at any column width and in any dictionary."""
+    h = hash_i64(packs[0])
+    for j, k in enumerate(packs[1:], 1):
+        h = torch.where(lengths > 8 * j,
+                        mix32((h + _GOLDEN + hash_i64(k)) & MASK32), h)
+    return h

@@ -14,12 +14,18 @@ FINAL step groups the partial rows again, merges each state and
 finalizes.  The slice-at-a-time streaming aggregation
 (``exec/streaming.py``) consumes them today.
 
+The corr family keeps its moment sums (float64, and exact int128 ones
+for int64 arguments, ``physical.corr_moments``), ``checksum`` its wrapping
+int64 sum, ``geometric_mean`` its sums of logarithms, ``bool_and`` and
+``bool_or`` a 0/1 merged by min and max, and the bitwise aggregates
+their value merged by AND and OR, each beside its count.
+
 The mesh, the exchanges and the multi-device runner are slice 5 and not
-ported: this module holds the states only.  An aggregate the port does
-not compute yet (``approx_percentile``, ``checksum``, ``bool_*``,
-``bitwise_*_agg``, ``geometric_mean``, the ``corr`` family, ``min_by``,
-...) raises ``NotImplementedError`` naming it, as the operators do, and so
-does a DISTINCT aggregate, whose state does not merge.
+ported: this module holds the states only.  ``approx_percentile``,
+``min_by`` and ``max_by`` have no state here (nor in the JAX package's
+streaming), so they raise ``NotImplementedError`` naming them and a
+streamed plan holding them runs whole; so does a DISTINCT aggregate,
+whose state does not merge.
 """
 
 from __future__ import annotations
@@ -33,10 +39,9 @@ from ..data.column import DICT, PLAIN
 from ..exec import physical as PH
 from ..exec.columns import Chunk, DCol
 from ..exec.expreval import as_double, eval_expr
-from ..exec.plan import (VARIANCE_FUNCS, AggSpec, PhysHashAggregate,
-                         _agg_output_type)
+from ..exec.plan import (CORR_FUNCS, VARIANCE_FUNCS, AggSpec,
+                         PhysHashAggregate, _agg_output_type)
 from ..ops import agg as A
-from ..ops import hashing as HASH
 from ..ops import hashtable as HT
 from ..ops import hll as HLL
 from ..ops import int128 as I128
@@ -44,8 +49,10 @@ from ..sql import ir
 
 # aggregates with a mergeable state in this package
 STATE_FUNCS = frozenset({"count", "count_star", "sum", "avg", "min", "max",
-                         "arbitrary", "any_value", "approx_distinct"}
-                        | VARIANCE_FUNCS)
+                         "arbitrary", "any_value", "approx_distinct",
+                         "checksum", "geometric_mean", "bool_and", "bool_or",
+                         "bitwise_and_agg", "bitwise_or_agg"}
+                        | VARIANCE_FUNCS | CORR_FUNCS)
 
 
 def partial_agg_states(plan: PhysHashAggregate, child: Chunk,
@@ -56,19 +63,23 @@ def partial_agg_states(plan: PhysHashAggregate, child: Chunk,
     table's overflow flag: a tensor, or None when it cannot overflow)."""
     for spec in plan.aggs:
         _check(spec)
-    group_exprs = tuple(e for _, e in plan.groups)
-    owner, slot, overflow = PH._insert(child, group_exprs, capacity)
-    gvalid = owner != HT.EMPTY
-    rep = owner.to(torch.int64).clamp(max=max(child.n_rows - 1, 0))
-    cols: Dict[str, DCol] = {name: eval_expr(e, child).take(rep, valid=gvalid)
-                             for name, e in plan.groups}
+    cols: Dict[str, DCol] = {}
+    if plan.groups:
+        group_exprs = tuple(e for _, e in plan.groups)
+        owner, slot, overflow = PH._insert(child, group_exprs, capacity)
+        gvalid = owner != HT.EMPTY
+        rep = owner.to(torch.int64).clamp(max=max(child.n_rows - 1, 0))
+        cols = {name: eval_expr(e, child).take(rep, valid=gvalid)
+                for name, e in plan.groups}
+        R = PH.Groups(slot, capacity, gvalid)
+    else:  # one group, present even over no rows: the global forms
+        R, overflow = PH.Whole(child.n_rows, child.mask.device), None
     specs: List[Tuple[str, str]] = []
     for spec in plan.aggs:
-        for sname, sfunc, scol in _partial_states(spec, child, slot,
-                                                  capacity, gvalid):
+        for sname, sfunc, scol in _partial_states(spec, child, R):
             cols[sname] = scol
             specs.append((sname, sfunc))
-    return Chunk(cols, gvalid), specs, overflow
+    return Chunk(cols, R.gvalid), specs, overflow
 
 
 def group_partials(plan: PhysHashAggregate, partials: Chunk, capacity: int):
@@ -103,6 +114,9 @@ def merge_state(sfunc: str, c: DCol, partials: Chunk, slot, capacity: int,
             f"merge of {sfunc} states in a {c.kind} column")
     if sfunc == "hll":
         out = HLL.seg_merge(v, slot, m, capacity)
+    elif sfunc in ("band", "bor"):
+        out = (A.seg_bitand if sfunc == "band" else A.seg_bitor)(
+            v, slot, m, capacity)
     elif sfunc == "sum":
         out = (I128.pack(*I128.seg_sum128_from_i128(v, slot, m, capacity))
                if v.dim() == 2 else
@@ -144,42 +158,42 @@ def _check(spec: AggSpec) -> None:
         raise NotImplementedError(f"{spec.func} states on the torch path")
 
 
-def _partial_states(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid):
+def _partial_states(spec: AggSpec, chunk: Chunk, R: PH.Groups):
     """(state name, merge function, DCol) triples of one aggregate's
     PARTIAL state, the same sums, extremes and registers the one-shot
-    aggregate (``physical._agg_col``) reduces."""
+    aggregate (``physical._agg_col``) reduces, by ``R``'s reductions."""
     _check(spec)
+    slot, capacity, gvalid = R.slot, R.capacity, R.gvalid
     mask = chunk.mask & (slot >= 0)
     if spec.func == "count_star":
         return [(f"{spec.name}#cnt", "sum", DCol(
-            T.BIGINT, PLAIN, A.seg_count(slot, mask, capacity),
-            validity=gvalid))]
+            T.BIGINT, PLAIN, R.count(mask), validity=gvalid))]
     c = eval_expr(spec.arg, chunk)
     if spec.func not in PH.KEEPS_ZONE:
         PH.refuse_zoned(c, f"the {spec.func} state")
     vmask = mask & c.valid_or_true()
-    cnt = A.seg_count(slot, vmask, capacity)
+    cnt = R.count(vmask)
     count = (f"{spec.name}#cnt", "sum",
              DCol(T.BIGINT, PLAIN, cnt, validity=gvalid))
     if spec.func == "count":
         return [count]
     if spec.func == "approx_distinct":
-        regs = HLL.group_state(HASH.hash_keys(PH._col_keys(c)), slot, vmask,
-                               capacity)
+        regs = HLL.group_state(PH.value_hash(c), slot, vmask, capacity)
         return [(f"{spec.name}#hll", "hll",
                  DCol(T.BIGINT, PLAIN, regs, validity=gvalid))]
     if spec.func in ("arbitrary", "any_value"):
         ridx = torch.arange(chunk.n_rows, dtype=torch.int64,
                             device=slot.device)
-        widx = A.seg_min(ridx, slot, vmask, capacity)
+        widx = R.min(ridx, vmask)
         return [(f"{spec.name}#arb", "arb",
                  c.take(widx.clamp(max=max(chunk.n_rows - 1, 0)),
                         valid=gvalid & (cnt > 0)))]
+    if spec.func in PH.MORE_FUNCS:
+        return _more_states(spec, c, chunk, vmask, R, count)
     if spec.func in ("min", "max") and c.kind == DICT:
-        f = A.seg_min if spec.func == "min" else A.seg_max
+        f = R.min if spec.func == "min" else R.max
         return [(f"{spec.name}#{spec.func}", spec.func, PH.dict_extreme(
-            c, lambda r: f(r, slot, vmask, capacity), gvalid & (cnt > 0),
-            c.dtype))]
+            c, lambda r: f(r, vmask), gvalid & (cnt > 0), c.dtype))]
     vals = c.values
     if c.kind != PLAIN or vals.dtype == torch.bool:
         raise NotImplementedError(
@@ -187,39 +201,101 @@ def _partial_states(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid):
     if spec.func in VARIANCE_FUNCS:
         fv = as_double(c)
         return [(f"{spec.name}#s1", "sum", DCol(
-                    T.DOUBLE, PLAIN, A.seg_sum(fv, slot, vmask, capacity),
+                    T.DOUBLE, PLAIN, R.sum(fv, vmask, torch.float64),
                     validity=gvalid)),
                 (f"{spec.name}#s2", "sum", DCol(
-                    T.DOUBLE, PLAIN, A.seg_sum(fv * fv, slot, vmask,
-                                               capacity), validity=gvalid)),
+                    T.DOUBLE, PLAIN, R.sum(fv * fv, vmask, torch.float64),
+                    validity=gvalid)),
                 count]
     if spec.func in ("min", "max"):
         if vals.dim() == 2:
             f = I128.seg_min128 if spec.func == "min" else I128.seg_max128
             v = I128.pack(*f(vals, slot, vmask, capacity))
         else:
-            v = (A.seg_min if spec.func == "min" else A.seg_max)(
-                vals, slot, vmask, capacity)
+            v = (R.min if spec.func == "min" else R.max)(vals, vmask)
         return [(f"{spec.name}#{spec.func}", spec.func,
                  DCol(c.dtype, PLAIN, v, validity=gvalid & (cnt > 0)))]
     # sum and avg: the int128 sum of a decimal, the float64 sum of a
-    # DOUBLE, the int64 sum of an integer
+    # DOUBLE, the int64 sum of an integer (a global one ``masked_sum``'s)
     ot = _agg_output_type(spec)
     if T.is_decimal(c.dtype):
         s = I128.pack(*PH._seg_sum128(vals, slot, vmask, capacity))
         st = T.decimal(38, c.dtype.scale)
     elif vals.is_floating_point():
-        s = A.seg_sum(vals, slot, vmask, capacity, torch.float64)
+        s = R.sum(vals, vmask, torch.float64)
         st = T.DOUBLE
     else:
         if spec.func == "sum" and ot != T.BIGINT:
             raise NotImplementedError(
                 f"grouped sum({c.dtype}) on the torch path")
-        s = A.seg_sum(vals, slot, vmask, capacity, torch.int64)
+        s = R.sum(vals, vmask, torch.int64)
         st = T.BIGINT
     out = [(f"{spec.name}#sum", "sum",
             DCol(st, PLAIN, s, validity=gvalid & (cnt > 0)))]
     return out + [count] if spec.func == "avg" else out
+
+
+def _more_states(spec: AggSpec, c: DCol, chunk: Chunk, vmask,
+                 R: PH.Groups, count):
+    """The states of the aggregates ``physical._agg_more`` computes (all
+    of ``MORE_FUNCS`` but approx_percentile, min_by and max_by, which
+    ``_check`` refuses), each beside the count of its rows."""
+    name, f = spec.name, spec.func
+
+    def state(tag, merge, dtype, v):
+        return (f"{name}#{tag}", merge, DCol(dtype, PLAIN, v,
+                                             validity=R.gvalid))
+
+    def sums(named):  # float64 sums, and packed int128 ones
+        return [state(t, "sum", T.DOUBLE if v.dim() == 1
+                      else T.decimal(38, 0), v) for t, v in named.items()]
+    if f in CORR_FUNCS:
+        return sums(PH.corr_moments(spec, c, chunk, vmask, R))
+    if f == "checksum":
+        v = state("sum", "sum", T.BIGINT,
+                  R.sum(PH.checksum_terms(c), vmask, torch.int64))
+    elif c.kind != PLAIN:
+        raise NotImplementedError(f"the {f} state of a {c.kind} column")
+    elif f == "geometric_mean":
+        return sums(PH.log_sums(c, vmask, R)) + [count]
+    elif c.values.dim() == 2:
+        raise NotImplementedError(f"the {f} state of a {c.dtype} column")
+    elif f in ("bool_and", "bool_or"):
+        # AND merges as the min over {0, 1}, OR as the max; a group with
+        # no row in this part has a NULL state that the merge skips
+        b = c.values.to(torch.bool)
+        v = (~R.any(~b, vmask)) if f == "bool_and" else R.any(b, vmask)
+        return [(f"{name}#b", "min" if f == "bool_and" else "max",
+                 DCol(T.BIGINT, PLAIN, v.to(torch.int64),
+                      validity=R.gvalid & (R.count(vmask) > 0))), count]
+    else:  # bitwise_and_agg / bitwise_or_agg: an empty part holds the
+        # operation's identity
+        band = f == "bitwise_and_agg"
+        v = state("b", "band" if band else "bor", T.BIGINT,
+                  (R.bitand if band else R.bitor)(c.values, vmask))
+    return [v, count]
+
+
+def _finalize_more(spec: AggSpec, merged: Dict[str, DCol], gvalid) -> DCol:
+    """A ``MORE_FUNCS`` aggregate from its merged states."""
+    name, f = spec.name, spec.func
+    if f in CORR_FUNCS:
+        v, ok = PH.corr_finalize(spec, {
+            t: merged[f"{name}#{t}"].values
+            for t in PH.CORR_FLOAT + PH.CORR_EXACT
+            if f"{name}#{t}" in merged})
+        return DCol(T.DOUBLE, PLAIN, v, validity=gvalid & ok)
+    cnt = merged[f"{name}#cnt"].values
+    if f == "checksum":
+        v = merged[f"{name}#sum"].values
+    elif f == "geometric_mean":
+        v = PH.geometric_mean({t: merged[f"{name}#{t}"].values
+                               for t in ("slog", "qlog")}, cnt)
+    elif f in ("bool_and", "bool_or"):
+        v = merged[f"{name}#b"].values.to(torch.bool)
+    else:
+        v = merged[f"{name}#b"].values
+    return DCol(_agg_output_type(spec), PLAIN, v, validity=gvalid & (cnt > 0))
 
 
 def _finalize_agg(spec: AggSpec, merged: Dict[str, DCol], gvalid) -> DCol:
@@ -236,6 +312,8 @@ def _finalize_agg(spec: AggSpec, merged: Dict[str, DCol], gvalid) -> DCol:
                     validity=gvalid)
     if spec.func in ("arbitrary", "any_value"):
         return merged[f"{name}#arb"]
+    if spec.func in PH.MORE_FUNCS:
+        return _finalize_more(spec, merged, gvalid)
     if spec.func in VARIANCE_FUNCS:
         cnt = merged[f"{name}#cnt"].values
         v = PH._variance(spec.func, merged[f"{name}#s1"].values,

@@ -1754,6 +1754,11 @@ class Planner:
                                 self._cur_outer)
             key = (node.name, arg, False, arg2, None)
         elif node.name == "approx_percentile":
+            if len(node.args) != 2:
+                # (x, w, p) weights x; the JAX package's planner read the
+                # weight as the percentile
+                raise NotImplementedError(
+                    "approx_percentile with a weight or an accuracy")
             arg = self.resolve(node.args[0], self._cur_scope, self._cur_outer)
             p = self.resolve(node.args[1], self._cur_scope, self._cur_outer)
             if not isinstance(p, ir.Literal):
@@ -1763,6 +1768,9 @@ class Planner:
             if T.is_decimal(p.dtype):
                 pv = pv / 10 ** p.dtype.scale
             param = float(pv)
+            if not 0.0 <= param <= 1.0:
+                raise ValueError("approx_percentile's percentile must be "
+                                 f"between 0 and 1, not {param}")
             key = (node.name, arg, False, None, param)
         elif node.name in ("min", "max") and len(node.args) == 2:
             # min(x, n)/max(x, n): the n smallest/largest as an array

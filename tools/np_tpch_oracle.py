@@ -674,6 +674,45 @@ def hash_i64(k: np.ndarray) -> np.ndarray:
     return mix32(lo ^ (mix32(hi) + np.uint32(0x9E3779B9)))
 
 
+GOLDEN64 = np.uint64(0x9E3779B97F4A7C15)
+
+
+def hash_strings(strings) -> np.ndarray:
+    """The engine's uint32 hash of each ASCII string
+    (``ops/hashing.py`` ``hash_strings``): its bytes in big-endian 8-byte
+    packs, zero-padded, the first pack hashed and each further pack that
+    holds one of its bytes mixed in."""
+    raw = [str(x).encode("ascii") for x in strings]
+    lens = np.array([len(b) for b in raw], np.int64)
+    w = max(int(lens.max(initial=0) + 7) // 8, 1)
+    packs = np.array(raw, dtype=f"S{8 * w}").view(">i8").reshape(
+        len(raw), w).astype(np.int64)
+    h = hash_i64(packs[:, 0])
+    for j in range(1, w):
+        mixed = mix32(h + np.uint32(0x9E3779B9) + hash_i64(packs[:, j]))
+        h = np.where(lens > 8 * j, mixed, h)
+    return h
+
+
+def checksum_terms(k: np.ndarray = None, strings=None) -> np.ndarray:
+    """Each int64 key's (or string's) ``checksum`` contribution, as the
+    engine forms it (``exec/physical.py`` ``checksum_terms``): (hash + 1)
+    times the 64-bit golden ratio, wrapping in int64."""
+    h = hash_i64(k) if strings is None else hash_strings(strings)
+    return ((h.astype(np.uint64) + np.uint64(1)) * GOLDEN64).view(np.int64)
+
+
+def wrap64(v: int) -> int:
+    """A Python int as the int64 it wraps to."""
+    return (v + 2**63) % 2**64 - 2**63
+
+
+def checksum(k: np.ndarray = None, strings=None) -> int:
+    """``checksum`` of int64 keys (or strings): the wrapping int64 sum of
+    their terms."""
+    return wrap64(exact_sum(checksum_terms(k, strings)))
+
+
 def hll_estimate(groups: np.ndarray, n_groups: int, keys: np.ndarray,
                  p: int = 11) -> np.ndarray:
     """``approx_distinct`` per group: 2^p int8 registers per group (the
@@ -1139,4 +1178,226 @@ def strings_dates(t: Tables) -> dict:
     out["month_end"] = {"c": [int((add_months(od_date, 1) > last).sum())]}
     out["zoned"] = {"h": [5], "u": [float(od_date.min()) * 86400.0],
                     "c": [int(od_date.shape[0])]}
+    return out
+
+
+# ------------------------------------------------ aggregates and patterns
+# ``chip_smoke.py``'s ``aggregates_patterns`` phase at SF1
+
+MR_DEFINE = ("partition by o_custkey order by o_orderkey {measures} "
+             "{rows} after match skip past last row pattern (d+ u+) "
+             "define d as o_totalprice < prev(o_totalprice), "
+             "u as o_totalprice > prev(o_totalprice))")
+AGGREGATES_PATTERNS = {
+    "bool_bits_checksum": "select l_returnflag, l_linestatus, "
+                          "bool_and(l_quantity < 50) a, "
+                          "bool_or(l_discount > 0.09) b, "
+                          "bitwise_and_agg(l_partkey) c, "
+                          "bitwise_or_agg(l_partkey) d, "
+                          "checksum(l_orderkey) e, count(*) n from lineitem "
+                          "group by 1, 2 order by 1, 2",
+    # price on quantity: the intercept is small beside the mean price
+    # (l_extendedprice = l_quantity * p_retailprice), so it cancels
+    "moments": "select l_returnflag, corr(l_extendedprice, l_quantity) c, "
+               "covar_samp(l_extendedprice, l_quantity) cs, "
+               "covar_pop(l_extendedprice, l_quantity) cp, "
+               "regr_slope(l_extendedprice, l_quantity) rs, "
+               "regr_intercept(l_extendedprice, l_quantity) ri, "
+               "geometric_mean(l_quantity) g from lineitem group by 1 "
+               "order by 1",
+    "percentiles": "select l_shipmode, approx_percentile(l_extendedprice, "
+                   "0.5) p, approx_percentile(l_quantity, 0.9) q "
+                   "from lineitem group by 1 order by 1",
+    "percentile_global": "select approx_percentile(o_totalprice, 0.5) p, "
+                         "approx_percentile(o_orderdate, 0.99) d from orders",
+    "min_by_date": "select o_orderpriority, min_by(o_orderkey, o_orderdate) "
+                   "a, max_by(o_orderkey, o_orderdate) b from orders "
+                   "group by 1 order by 1",
+    # the key is unique per lineitem row (l_orderkey * 8 + l_linenumber
+    # in its low 26 bits), so no tie decides the winner
+    "min_by_join": "select o_orderpriority, min_by(o_totalprice, "
+                   "l_partkey * 67108864 + l_orderkey * 8 + l_linenumber) a, "
+                   "max_by(l_shipdate, l_partkey * 67108864 + l_orderkey * 8 "
+                   "+ l_linenumber) b, count(*) n from lineitem, orders "
+                   "where l_orderkey = o_orderkey group by 1 order by 1",
+    "global_checksum": "select checksum(l_orderkey) c, "
+                       "bool_and(l_shipdate < l_receiptdate) b, "
+                       "bitwise_or_agg(l_suppkey) o, "
+                       "geometric_mean(l_quantity) g from lineitem",
+    "match_one_row": "select count(*) n, sum(mlen) s, max(mno) m, sum(fp) f, "
+                     "sum(lp) l from orders match_recognize (" + MR_DEFINE
+                     .format(measures="measures match_number() as mno, "
+                             "count(*) as mlen, first(o_totalprice) as fp, "
+                             "last(o_totalprice) as lp",
+                             rows="one row per match"),
+    "match_all_rows": "select count(*) n, sum(rcount) s, max(mno) m, "
+                      "sum(price) p from orders match_recognize ("
+                      + MR_DEFINE.format(
+                          measures="measures match_number() as mno, "
+                          "count(*) as rcount, o_totalprice as price",
+                          rows="all rows per match"),
+}
+# DOUBLE results, held to a relative tolerance: the oracle computes them
+# exactly and rounds once, the engine rounds a few times
+AGGREGATES_PATTERNS_DOUBLE = ("moments", "global_checksum")
+# the statements ``chip_smoke.py`` also streams, slice by slice
+AGGREGATES_STREAMED = ("bool_bits_checksum", "moments")
+
+
+def _strings(col) -> np.ndarray:
+    """A dictionary column's strings per row (numpy unicode)."""
+    return np.array([str(x) for x in col.dictionary])[np.asarray(col.values)]
+
+
+def _nearest_rank(v: np.ndarray, q: float) -> int:
+    """approx_percentile's exact nearest rank: the ceil(q n)-th smallest."""
+    v = np.sort(v)
+    return int(v[max(math.ceil(q * v.shape[0]) - 1, 0)])
+
+
+def _corr_family(x: np.ndarray, y: np.ndarray, scale: int) -> dict:
+    """corr, covar_samp, covar_pop, regr_slope, regr_intercept of y on x,
+    two int64 columns of one decimal scale, exactly in rationals over
+    exact sums, each rounded once to float64."""
+    from fractions import Fraction
+    n = x.shape[0]
+    sx, sy = exact_sum(x), exact_sum(y)
+    sxy, sxx, syy = (exact_sum(a * b) for a, b in ((x, y), (x, x), (y, y)))
+    dxy, dxx, dyy = n * sxy - sx * sy, n * sxx - sx * sx, n * syy - sy * sy
+    unit = 10 ** scale
+    r2 = float(Fraction(dxy * dxy, dxx * dyy))
+    return {"c": math.copysign(math.sqrt(r2), dxy),
+            "cs": float(Fraction(dxy, n * (n - 1) * unit * unit)),
+            "cp": float(Fraction(dxy, n * n * unit * unit)),
+            "rs": float(Fraction(dxy, dxx)),
+            "ri": float(Fraction(sy * sxx - sx * sxy, dxx * unit))}
+
+
+def _geometric_mean(v: np.ndarray) -> float:
+    return math.exp(math.fsum(np.log(v)) / v.shape[0])
+
+
+def v_shape_matches(t: Tables):
+    """The orders' D+U+ matches per customer (ordered by order key), by
+    Python's ``re`` over one string of the rows' letters with a separator
+    between customers: D a price below the row before's, U above it, X
+    otherwise (a customer's first row: PREV is NULL).  Returns (sorted
+    prices, start rows, lengths, the match's number in its customer)."""
+    import re
+    cust, okey = t.v("orders", "o_custkey"), t.v("orders", "o_orderkey")
+    order = np.lexsort((okey, cust))
+    c, p = cust[order], t.v("orders", "o_totalprice")[order]
+    first = np.ones(c.shape[0], bool)
+    first[1:] = c[1:] != c[:-1]
+    prev = np.concatenate([[0], p[:-1]])
+    letter = np.where(first, "X", np.where(p < prev, "D", np.where(
+        p > prev, "U", "X")))
+    # a "|" before each customer's first row; string position i + k holds
+    # row i, k the customers started at or before it
+    parts = np.where(first, np.char.add("|", letter), letter)
+    text = "".join(parts.tolist())
+    seps = np.cumsum(first)
+    pos_row = np.full(len(text), -1, np.int64)
+    pos_row[np.arange(c.shape[0]) + seps] = np.arange(c.shape[0])
+    starts, lens = [], []
+    for m in re.finditer(r"D+U+", text):
+        starts.append(pos_row[m.start()])
+        lens.append(m.end() - m.start())
+    starts, lens = np.array(starts, np.int64), np.array(lens, np.int64)
+    # numbered within the customer: the matches before, less those of
+    # earlier customers
+    cust_of = seps[starts]
+    before = np.searchsorted(cust_of, cust_of, side="left")
+    mno = np.arange(starts.shape[0]) - before + 1
+    return p, starts, lens, mno
+
+
+def aggregates_patterns(t: Tables) -> dict:
+    """The ``AGGREGATES_PATTERNS`` statements' results: integers and
+    percentiles exactly, checksums by ``checksum``, min_by/max_by as the
+    first row in table order at the key's extreme, the corr family in
+    exact rationals, geometric_mean from ``math.fsum`` logarithms."""
+    li, od = "lineitem", "orders"
+    t.preload(li, ("l_returnflag", "l_linestatus", "l_quantity",
+                   "l_discount", "l_partkey", "l_suppkey", "l_orderkey",
+                   "l_extendedprice", "l_shipmode", "l_linenumber",
+                   "l_shipdate", "l_receiptdate"))
+    out = {}
+    rf, ls = _strings(t.col(li, "l_returnflag")), _strings(
+        t.col(li, "l_linestatus"))
+    qty, disc = t.v(li, "l_quantity"), t.v(li, "l_discount")
+    pk, sk, lok = (t.v(li, c) for c in ("l_partkey", "l_suppkey",
+                                         "l_orderkey"))
+    keys = [(a, b) for a in np.unique(rf).tolist()
+            for b in np.unique(ls).tolist() if ((rf == a) & (ls == b)).any()]
+    cols = {c: [] for c in ("l_returnflag", "l_linestatus", "a", "b", "c",
+                            "d", "e", "n")}
+    for a, b in keys:
+        g = (rf == a) & (ls == b)
+        for c, v in zip(cols, (a, b, bool((qty[g] < 5000).all()),
+                               bool((disc[g] > 9).any()),
+                               int(np.bitwise_and.reduce(pk[g])),
+                               int(np.bitwise_or.reduce(pk[g])),
+                               checksum(lok[g]), int(g.sum()))):
+            cols[c].append(v)
+    out["bool_bits_checksum"] = cols
+    ep = t.v(li, "l_extendedprice")
+    cols = {c: [] for c in ("l_returnflag", "c", "cs", "cp", "rs", "ri",
+                            "g")}
+    for a in sorted(np.unique(rf).tolist()):
+        g = rf == a
+        cols["l_returnflag"].append(a)
+        for c, v in _corr_family(qty[g], ep[g], 2).items():
+            cols[c].append(v)
+        cols["g"].append(_geometric_mean(qty[g] / 100.0))
+    out["moments"] = cols
+    mode = _strings(t.col(li, "l_shipmode"))
+    modes = sorted(np.unique(mode).tolist())
+    out["percentiles"] = {
+        "l_shipmode": modes,
+        "p": [_nearest_rank(ep[mode == m], 0.5) for m in modes],
+        "q": [_nearest_rank(qty[mode == m], 0.9) for m in modes]}
+    okey, date = t.v(od, "o_orderkey"), t.v(od, "o_orderdate")
+    price = t.v(od, "o_totalprice")
+    out["percentile_global"] = {"p": [_nearest_rank(price, 0.5)],
+                                "d": [_nearest_rank(date, 0.99)]}
+    prio = _strings(t.col(od, "o_orderpriority"))
+    prios = sorted(np.unique(prio).tolist())
+
+    def first_at(g, key, best):
+        return int(np.flatnonzero(g & (key == best(key[g])))[0])
+    out["min_by_date"] = {
+        "o_orderpriority": prios,
+        "a": [int(okey[first_at(prio == p, date, np.min)]) for p in prios],
+        "b": [int(okey[first_at(prio == p, date, np.max)]) for p in prios]}
+    row, found = lookup(okey, lok)
+    key = pk * 67108864 + lok * 8 + t.v(li, "l_linenumber")
+    lprio = np.where(found, prio[row], "")
+    ship = t.v(li, "l_shipdate")
+    cols = {"o_orderpriority": prios, "a": [], "b": [], "n": []}
+    for p in prios:
+        g = found & (lprio == p)
+        cols["a"].append(int(price[row[first_at(g, key, np.min)]]))
+        cols["b"].append(int(ship[first_at(g, key, np.max)]))
+        cols["n"].append(int(g.sum()))
+    out["min_by_join"] = cols
+    out["global_checksum"] = {
+        "c": [checksum(lok)],
+        "b": [bool((ship < t.v(li, "l_receiptdate")).all())],
+        "o": [int(np.bitwise_or.reduce(sk))],
+        "g": [_geometric_mean(qty / 100.0)]}
+    p, starts, lens, mno = v_shape_matches(t)
+    ends = starts + lens - 1
+    out["match_one_row"] = {"n": [int(starts.shape[0])],
+                            "s": [int(lens.sum())], "m": [int(mno.max())],
+                            "f": [exact_sum(p[starts])],
+                            "l": [exact_sum(p[ends])]}
+    covered = np.zeros(p.shape[0] + 1, np.int64)
+    np.add.at(covered, starts, 1)
+    np.add.at(covered, ends + 1, -1)
+    inside = np.cumsum(covered)[:-1] > 0
+    out["match_all_rows"] = {"n": [int(lens.sum())],
+                             "s": [int((lens * (lens + 1) // 2).sum())],
+                             "m": [int(mno.max())],
+                             "p": [exact_sum(p[inside])]}
     return out
