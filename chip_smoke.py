@@ -81,6 +81,17 @@ non-zero without printing a result):
    Then ``AGGREGATES_STREAMED`` through ``run_sql_streaming`` (131072
    order units a slice, at least 8 slices), equal to the oracle, one
    ``aggregates_streamed`` line each;
+6e. nested: the same runner and tables take the ``NESTED`` statements of
+   ``tools/np_tpch_oracle.py`` the same way (one ``nested_statement``
+   line each, both kernels required, each one's largest launch
+   captured): UNNEST of ``split(p_name, ' ')`` (200,000 names, 1,000,000
+   words) grouped, WITH ORDINALITY, ``contains``/``array_distinct``/
+   ``array_position`` summed as BIGINTs (``masked_sum``), the string set
+   operations sorted and joined (strings compared across dictionaries),
+   ``array_agg`` of 1.5 M orders by customer, ``histogram`` over
+   lineitem ⋈ orders (``sorted_probe``), ``max(x, n)``/``min(x, n)`` by
+   return flag, ``map_agg`` and ``element_at`` by region and a ROW folded
+   at the edge, each equal to Python/numpy;
 7. tpcds: the TPC-DS connector at SF1 loads all 24 tables onto the card;
    all 99 TPC-DS queries (``tpcds.queries.RUNS``, windows and GROUPING
    SETS among them) run through ``run_sql`` (one warm-up, then 3 timed
@@ -136,8 +147,8 @@ non-zero without printing a result):
    the resident scan's bytes.  Launch counts of both paths are read
    around their runs;
 10. a ``kernels`` JSON line (launches by path: tpch, scalars,
-    strings_dates, aggregates_patterns, aggregates_streamed, tpcds,
-    server, tiers, streamed), then the card line,
+    strings_dates, aggregates_patterns, aggregates_streamed, nested,
+    tpcds, server, tiers, streamed), then the card line,
     then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -545,7 +556,7 @@ def check_statement(label: str, name: str, table, want: dict,
 def statements_phase(torch, CK, runner, card: str, label: str,
                      statements: dict, oracle, doubles=(),
                      rel: float = SCALARS_REL) -> dict:
-    """Phases 6b, 6c and 6d (see the module docstring): ``statements`` on
+    """Phases 6b-6e (see the module docstring): ``statements`` on
     phase 4's SF1 runner, each run equal to ``oracle()``'s result (the
     ``doubles`` to ``rel`` of it); one ``<label>_statement`` line per
     statement.  The launch counts are reset just before the first run and
@@ -616,25 +627,35 @@ def statements_phase(torch, CK, runner, card: str, label: str,
         for k, v in largest.items()}}
 
 
-def scalars_phase(torch, CK, NO, runner, card: str) -> dict:
+def oracle_tables(NO, runner, tables=None):
+    """The host columns the statement phases' oracles read: ``tables``,
+    shared by the phases of one run so that each column is generated
+    once, or a new ``NO.Tables``."""
+    return tables if tables is not None else NO.Tables(runner.datasource)
+
+
+def scalars_phase(torch, CK, NO, runner, card: str, tables=None) -> dict:
     """Phase 6b: the ``NO.SCALARS`` statements."""
     return statements_phase(
         torch, CK, runner, card, "scalars", NO.SCALARS,
-        lambda: NO.scalars(NO.Tables(runner.datasource)), NO.SCALARS_DOUBLE)
+        lambda: NO.scalars(oracle_tables(NO, runner, tables)),
+        NO.SCALARS_DOUBLE)
 
 
-def strings_dates_phase(torch, CK, NO, runner, card: str) -> dict:
+def strings_dates_phase(torch, CK, NO, runner, card: str,
+                        tables=None) -> dict:
     """Phase 6c: the ``NO.STRINGS_DATES`` statements."""
     return statements_phase(
         torch, CK, runner, card, "strings_dates", NO.STRINGS_DATES,
-        lambda: NO.strings_dates(NO.Tables(runner.datasource)))
+        lambda: NO.strings_dates(oracle_tables(NO, runner, tables)))
 
 
 AGG_STREAM_SLICE = 131072  # order units a slice: 12 slices of SF1 lineitem
 AGG_STREAM_MIN_SLICES = 8
 
 
-def aggregates_patterns_phase(torch, CK, NO, runner, card: str) -> dict:
+def aggregates_patterns_phase(torch, CK, NO, runner, card: str,
+                              tables=None) -> dict:
     """Phase 6d: the ``NO.AGGREGATES_PATTERNS`` statements (DOUBLEs to
     SCALARS_REL: the corr family of int64 arguments and geometric_mean's
     logarithms sum exactly), then the ``AGGREGATES_STREAMED``
@@ -644,7 +665,7 @@ def aggregates_patterns_phase(torch, CK, NO, runner, card: str) -> dict:
     out = statements_phase(
         torch, CK, runner, card, "aggregates_patterns",
         NO.AGGREGATES_PATTERNS,
-        lambda: NO.aggregates_patterns(NO.Tables(runner.datasource)),
+        lambda: NO.aggregates_patterns(oracle_tables(NO, runner, tables)),
         NO.AGGREGATES_PATTERNS_DOUBLE)
     ds = runner.datasource
     before = dict(CK.LAUNCHES)
@@ -670,6 +691,13 @@ def aggregates_patterns_phase(torch, CK, NO, runner, card: str) -> dict:
     out["streamed_launches"] = {k: CK.LAUNCHES[k] - before[k]
                                 for k in CK.LAUNCHES}
     return out
+
+
+def nested_phase(torch, CK, NO, runner, card: str, tables=None) -> dict:
+    """Phase 6e: the ``NO.NESTED`` statements."""
+    return statements_phase(
+        torch, CK, runner, card, "nested", NO.NESTED,
+        lambda: NO.nested(oracle_tables(NO, runner, tables)))
 
 
 # ---------------------------------------------------------------- tpcds
@@ -1618,9 +1646,14 @@ def main() -> int:
         say("measure", kernel="sorted_probe", **s)
         shapes["sorted_probe"].append(s)
     say("like", **measure_like(torch, runner, NO))
-    scalars = scalars_phase(torch, CK, NO, runner, card)
-    strings_dates = strings_dates_phase(torch, CK, NO, runner, card)
-    aggregates = aggregates_patterns_phase(torch, CK, NO, runner, card)
+    # one set of host columns for the statement phases' oracles
+    tables = NO.Tables(runner.datasource)
+    scalars = scalars_phase(torch, CK, NO, runner, card, tables)
+    strings_dates = strings_dates_phase(torch, CK, NO, runner, card, tables)
+    aggregates = aggregates_patterns_phase(torch, CK, NO, runner, card,
+                                           tables)
+    nested = nested_phase(torch, CK, NO, runner, card, tables)
+    del tables
     tpcds = tpcds_phase(torch, CK)
     server = server_phase(torch, CK, NO, requests, want, card)
     tiers = tiers_phase(torch, CK, NO, runner, requests, want, free, card)
@@ -1630,6 +1663,7 @@ def main() -> int:
     for shape in measure_apart(torch, {**scalars["captured"],
                                        **strings_dates["captured"],
                                        **aggregates["captured"],
+                                       **nested["captured"],
                                        **tpcds["captured"],
                                        **server["captured"],
                                        **tiers["captured"]}):
@@ -1644,6 +1678,7 @@ def main() -> int:
                    "aggregates_patterns": aggregates["launches"][name],
                    "aggregates_streamed":
                        aggregates["streamed_launches"][name],
+                   "nested": nested["launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

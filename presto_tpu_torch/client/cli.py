@@ -16,11 +16,50 @@ import sys
 import time
 
 
+def type_args(dtype: str) -> list:
+    """The top-level arguments of a parametrised type's name:
+    ``map(varchar(25),decimal(15,2))`` → ``["varchar(25)",
+    "decimal(15,2)"]``; a ``row(...)`` gives its ``"name type"`` fields."""
+    inner = dtype[dtype.index("(") + 1:-1]
+    out, depth, start = [], 0, 0
+    for i, ch in enumerate(inner):
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            out.append(inner[start:i].strip())
+            start = i + 1
+    return out + [inner[start:].strip()]
+
+
+def nested_items(v, dtype: str):
+    """(kind, [(label, value, type)]) of an ARRAY, MAP or ROW value, its
+    elements with their types' names; None for any other type."""
+    if dtype.startswith("array("):
+        (et,) = type_args(dtype)
+        return "array", [(None, x, et) for x in v]
+    if dtype.startswith("map("):
+        kt, vt = type_args(dtype)
+        return "map", [((k, kt), x, vt) for k, x in v.items()]
+    if dtype.startswith("row("):
+        fields = [f.split(" ", 1) for f in type_args(dtype)]
+        return "row", [(n, v[n], t) for n, t in fields]
+    return None
+
+
 def _fmt(v, dtype: str):
     """Render logical values: dates ISO, decimals with their scale,
-    timestamps ISO (the client protocol keeps raw unscaled ints)."""
+    timestamps ISO (the client protocol keeps raw unscaled ints); an
+    ARRAY as ``[a, b]``, a MAP as ``{k=v}`` and a ROW as ``{name=v}``,
+    as Trino's CLI prints them."""
     if v is None:
         return "NULL"
+    nested = nested_items(v, dtype)
+    if nested is not None:
+        kind, items = nested
+        if kind == "array":
+            return "[" + ", ".join(_fmt(x, t) for _, x, t in items) + "]"
+        return "{" + ", ".join(
+            f"{_fmt(*k) if kind == 'map' else k}={_fmt(x, t)}"
+            for k, x, t in items) + "}"
     if dtype == "date":
         import datetime as dt
         return (dt.date(1970, 1, 1) + dt.timedelta(days=int(v))).isoformat()

@@ -33,7 +33,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
-from .cli import _fmt
+from .cli import _fmt, nested_items
 
 PAGE_ROWS = 1000
 
@@ -42,9 +42,23 @@ _ids = itertools.count(1)
 
 def _json_value(v, dtype: str):
     """Wire rendering per type (the reference sends logical JSON values:
-    dates/timestamps/decimals as strings, numbers as numbers)."""
+    dates/timestamps/decimals as strings, numbers as numbers; an ARRAY as
+    a JSON array, a MAP as an object keyed by its keys' text, a ROW as an
+    array of its field values, as Trino's protocol does; the JAX package
+    sends a nested value through ``int``, which raises)."""
     if v is None:
         return None
+    nested = nested_items(v, dtype)
+    if nested is not None:
+        kind, items = nested
+        if kind != "map":
+            return [_json_value(x, t) for _, x, t in items]
+        out = {}
+        for (k, kt), x, t in items:
+            key = _json_value(k, kt)
+            out[key if isinstance(key, str) else json.dumps(key)] = \
+                _json_value(x, t)
+        return out
     if dtype in ("date", "timestamp") or dtype.startswith("decimal("):
         return _fmt(v, dtype)
     if dtype == "boolean":

@@ -343,6 +343,11 @@ def common_super_type(a: DataType, b: DataType) -> DataType:
     ``sql/analyzer/TypeCoercion.java``)."""
     if a == b:
         return a
+    if isinstance(a, ArrayType) and isinstance(b, ArrayType):
+        return ArrayType(common_super_type(a.element, b.element))
+    if isinstance(a, MapType) and isinstance(b, MapType):
+        return MapType(common_super_type(a.key, b.key),
+                       common_super_type(a.value, b.value))
     if isinstance(a, DoubleType) or isinstance(b, DoubleType):
         return DOUBLE
     if is_decimal(a) or is_decimal(b):

@@ -5,6 +5,14 @@ reference's Page/Block (``core/trino-spi/.../spi/Page.java:33``): a ``DCol``
 is one column's tensors plus static metadata; a ``Chunk`` is an
 equal-length set of DCols with a row-validity mask (selection is a mask;
 compaction is an explicit operator step).
+
+Nested values: an ARRAY column is ``values [N, W]`` of its element's
+physical dtype (a string element is a code into ``dictionary``) and
+``lengths [N]``; a MAP adds its values as ``values2 [N, W]`` (a string
+map value is a code into ``dictionary2``, the keys' strings staying in
+``dictionary``).  W is the column's widest row; positions past a row's
+length are padding.  ROW values never reach the device: the planner
+shreds them into one column per field.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import Column, PLAIN, DICT, BYTES
+from ..data.column import Column, PLAIN, DICT, BYTES, ARRAY, MAP
 
 
 class Dictionary:
@@ -43,14 +51,18 @@ class Dictionary:
 @dataclass
 class DCol:
     dtype: T.DataType
-    kind: str                      # PLAIN | DICT | BYTES
-    values: torch.Tensor           # PLAIN:[N] (long decimal [N,2]) | DICT codes:[N] | BYTES:[N,W]
-    lengths: Optional[torch.Tensor] = None   # BYTES
+    kind: str                      # PLAIN | DICT | BYTES | ARRAY | MAP
+    # PLAIN:[N] (long decimal [N,2]) | DICT codes:[N] | BYTES, ARRAY,
+    # MAP keys:[N,W]
+    values: torch.Tensor
+    lengths: Optional[torch.Tensor] = None   # BYTES, ARRAY, MAP
     validity: Optional[torch.Tensor] = None  # bool [N]; None = all valid
-    dictionary: Optional[Dictionary] = None  # DICT
+    # DICT; a string element of an ARRAY, a string key of a MAP
+    dictionary: Optional[Dictionary] = None
     # TIMESTAMP WITH TIME ZONE: int32 minutes east of UTC per row (values
-    # hold the UTC instant in int64 micros)
+    # hold the UTC instant in int64 micros); MAP: its values [N, W]
     values2: Optional[torch.Tensor] = None
+    dictionary2: Optional[Dictionary] = None  # MAP: string map values
 
     @property
     def n_rows(self) -> int:
@@ -73,7 +85,8 @@ class DCol:
         return DCol(self.dtype, self.kind, self.values[i],
                     None if self.lengths is None else self.lengths[i],
                     v, self.dictionary,
-                    None if self.values2 is None else self.values2[i])
+                    None if self.values2 is None else self.values2[i],
+                    self.dictionary2)
 
 
 @dataclass
@@ -114,6 +127,15 @@ def from_host(col: Column, device) -> DCol:
     if col.kind == BYTES:
         return DCol(col.dtype, BYTES, _dev(col.values, device),
                     _dev(col.lengths, device), validity)
+    if col.kind in (ARRAY, MAP):
+        return DCol(col.dtype, col.kind, _dev(col.values, device),
+                    _dev(col.lengths, device), validity,
+                    None if col.dictionary is None
+                    else Dictionary(col.dictionary),
+                    None if col.values2 is None
+                    else _dev(col.values2, device),
+                    None if col.dictionary2 is None
+                    else Dictionary(col.dictionary2))
     if col.kind != PLAIN:
         raise NotImplementedError(f"{col.kind} columns on the torch path")
     values = col.values
@@ -138,6 +160,15 @@ def to_host(col: DCol, sel: np.ndarray) -> Column:
     if col.kind == BYTES:
         return Column(col.dtype, vals, validity, BYTES,
                       lengths=col.lengths.cpu().numpy()[sel])
+    if col.kind in (ARRAY, MAP):
+        return Column(col.dtype, vals, validity, col.kind,
+                      dictionary=None if col.dictionary is None
+                      else col.dictionary.strings,
+                      lengths=col.lengths.cpu().numpy()[sel],
+                      values2=None if col.values2 is None
+                      else col.values2.cpu().numpy()[sel],
+                      dictionary2=None if col.dictionary2 is None
+                      else col.dictionary2.strings)
     if vals.ndim == 2 and T.is_decimal(col.dtype):
         # long decimal (hi, lo) words → exact python ints
         from ..ops.int128 import to_host_ints
@@ -162,13 +193,16 @@ def _port_type(t):
 
 def dcol_from_arrays(other, device) -> DCol:
     """Another engine's device column (duck-typed: ``dtype``, ``kind``,
-    ``values``, ``lengths``, ``validity``, ``dictionary``, ``values2``
-    with array-like members) → this package's DCol on ``device``, through
-    numpy.  Feeds both engines identical inputs in the tests."""
+    ``values``, ``lengths``, ``validity``, ``dictionary``, ``values2``,
+    ``dictionary2`` with array-like members) → this package's DCol on
+    ``device``, through numpy.  Feeds both engines identical inputs in
+    the tests."""
     def arr(a):
         return None if a is None else _dev(np.asarray(a), device)
-    d = None if other.dictionary is None else \
-        Dictionary(other.dictionary.strings)
+
+    def dic(d):
+        return None if d is None else Dictionary(d.strings)
     return DCol(_port_type(other.dtype), other.kind, arr(other.values),
-                arr(other.lengths), arr(other.validity), d,
-                arr(getattr(other, "values2", None)))
+                arr(other.lengths), arr(other.validity),
+                dic(other.dictionary), arr(getattr(other, "values2", None)),
+                dic(getattr(other, "dictionary2", None)))

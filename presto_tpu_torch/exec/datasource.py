@@ -25,8 +25,10 @@ Writes (CTAS, INSERT, the rebuilds of UPDATE and DELETE, DROP) store host
 ``Table`` snapshots in the memory connector; each bumps
 ``catalog.version`` (the runner's plan cache key), drops the table's
 cached device columns and frees their pool reservations, so the next scan
-uploads the new snapshot.  ROW columns are not shredded on write as in
-the JAX package: the port refuses them past the scan.
+uploads the new snapshot.  A ROW column is stored shredded, one dotted
+column per field (``payload.v``), as in the JAX package; ``row_fields``
+keeps which columns those are, so that ``SELECT *`` folds them back and
+a column merely named with a dot stays one column.
 
 Reference: ``operator/ScanFilterAndProjectOperator.java:67`` consumes a
 ``ConnectorPageSource``; here the same seam feeds device ingest.
@@ -34,13 +36,13 @@ Reference: ``operator/ScanFilterAndProjectOperator.java:67`` consumes a
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from ..connector import CatalogManager, memory_connector, tpch_connector
-from ..data.column import PLAIN, Column, bytes_column
+from ..data.column import PLAIN, ROW, Column, bytes_column
 from ..data.table import Table
 from ..utils.memory import MemoryPool, col_bytes
 from .columns import Chunk, DCol, Dictionary, from_host
@@ -73,6 +75,8 @@ class DataSource:
                                else device_budget_bytes)
         self.ingest_slice_rows = ingest_slice_rows
         self.ingest_slices = 0  # connector reads (slices) so far
+        # memory table → its columns that hold a shredded ROW's fields
+        self.row_fields: Dict[str, Set[str]] = {}
 
     @property
     def memory(self) -> Dict[str, Table]:
@@ -122,17 +126,36 @@ class DataSource:
             raise ValueError(f"table '{name}' already exists in catalog "
                              f"{hit[0].name}")
 
+    @staticmethod
+    def _shred_rows(table: Table) -> Tuple[Table, Set[str]]:
+        """(``table`` with each ROW column stored as one dotted column per
+        field, ``r.x``: the device never sees a struct; the dotted names
+        of those fields)."""
+        out, fields = {}, set()
+        for cname, col in table.columns.items():
+            if col.kind == ROW:
+                for f, child in col.children:
+                    out[f"{cname}.{f}"] = child
+                    fields.add(f"{cname}.{f}")
+            else:
+                out[cname] = col
+        return (Table(out) if fields else table), fields
+
     def create_table(self, name: str, table: Table) -> None:
         self._check_writable_name(name)
+        table, self.row_fields[name] = self._shred_rows(table)
         self.catalog.get("memory").page_sink.create_table(name, table)
         self._drop_cached(name)
 
     def insert_into(self, name: str, table: Table) -> None:
+        table, fields = self._shred_rows(table)
         self.catalog.get("memory").page_sink.insert(name, table)
+        self.row_fields[name] = self.row_fields.get(name, set()) | fields
         self._drop_cached(name)
 
     def drop_table(self, name: str) -> None:
         self.catalog.get("memory").page_sink.drop_table(name)
+        self.row_fields.pop(name, None)
         self._drop_cached(name)
 
     def swap_memory(self, tables: Dict[str, Table]) -> None:

@@ -27,10 +27,16 @@ fixed-width, else over each distinct string on the host; date and time
 functions are int64 day and microsecond arithmetic; a TIMESTAMP WITH
 TIME ZONE is its UTC instant plus a per-row offset (``DCol.values2``).
 
-Not ported yet (they raise ``NotImplementedError``): the array functions
-and ``split``; nested types; LIKE with '_' on a BYTES column; ordered
-compares of BYTES columns; casts other than among numeric types, among
-string types and among date and timestamp types; named time zones.
+ARRAY and MAP values are ``[N, W]`` tensors with lengths (``columns.py``);
+the array and map functions, ``split`` and a nested CASE or COALESCE
+work on them row by row (``ops/arrays.py``), string elements compared
+and ordered by their strings.
+
+Not ported yet (they raise ``NotImplementedError``): LIKE with '_' on a
+BYTES column; ordered compares of BYTES columns; casts other than among
+numeric types, among string types, among date and timestamp types and
+between nested types of such elements; named time zones; string
+functions of an ARRAY (``reverse``, ``concat``).
 """
 
 from __future__ import annotations
@@ -47,9 +53,11 @@ import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import PLAIN, DICT, BYTES
+from ..data.column import PLAIN, DICT, BYTES, ARRAY, MAP
+from ..ops import arrays as AR
 from ..ops import decimal as D
 from ..ops import int128 as I128
+from ..ops import sort as SORT
 from ..ops import strings as S
 from ..sql import ir
 from .columns import Chunk, DCol, Dictionary
@@ -219,6 +227,8 @@ def _literal(expr: ir.Literal, n: int, dev) -> DCol:
                         (n,), dtype=torch.bool, device=dev),
                     values2=torch.full((n,), int(off), dtype=torch.int32,
                                        device=dev))
+    if v is None and isinstance(t, (T.ArrayType, T.MapType)):
+        return _nested_null(t, n, dev)
     if not isinstance(v, (type(None), str, bool, int, float)):
         raise NotImplementedError(f"{t} literal {v!r}")
     if v is None:
@@ -402,6 +412,11 @@ def _eval_func(expr: ir.Func, chunk: Chunk) -> DCol:
     name = expr.name
     if name in _NULLARY:
         return _NULLARY[name](expr, chunk)
+    if name == "array_pack" and not expr.args:  # ARRAY[]
+        return _array(expr.dtype, torch.zeros(
+            (chunk.n_rows, 0), dtype=_torch_dtype(expr.dtype.element),
+            device=chunk.mask.device), torch.zeros(
+                (chunk.n_rows,), device=chunk.mask.device), None)
     if name not in _FUNCS:
         raise NotImplementedError(f"scalar function {name}")
     return _FUNCS[name](expr, [eval_expr(a, chunk) for a in expr.args])
@@ -437,8 +452,21 @@ def _coalesce(expr, args) -> DCol:
     BYTES, padded to the widest; decimals rescale to the result's scale,
     and one long-decimal argument widens every one to (hi, lo) words; a
     zoned result takes each row's offset with its value (the JAX package
-    drops the offsets)."""
+    drops the offsets); ARRAY and MAP arguments go to one layout
+    (``nested_layouts``)."""
     rt = expr.dtype
+    if isinstance(rt, (T.ArrayType, T.MapType)):
+        vals, vals2, d, d2 = nested_layouts(args, rt)
+        out, out2, ln = vals[-1], None if vals2 is None else vals2[-1], \
+            args[-1].lengths
+        for i in range(len(args) - 2, -1, -1):
+            ok = args[i].valid_or_true()
+            out = torch.where(ok[:, None], vals[i], out)
+            if out2 is not None:
+                out2 = torch.where(ok[:, None], vals2[i], out2)
+            ln = torch.where(ok, args[i].lengths, ln)
+        return DCol(rt, args[0].kind, out, ln.to(torch.int32),
+                    _or_validity([a.validity for a in args]), d, out2, d2)
     if T.is_string(rt):
         cols = [dcol_to_bytes(a) for a in args]
         w = max(c.values.shape[1] for c in cols)
@@ -1652,6 +1680,558 @@ def _uuid(expr, chunk: Chunk) -> DCol:
                 dictionary=Dictionary(uniq.astype(object)))
 
 
+# ---------------------------------------------------------------- nested values
+#
+# ARRAY and MAP columns (``columns.py``): string elements are codes into
+# the column's dictionary, and every comparison or ordering between
+# string elements goes through their strings: two operands over
+# different dictionaries are recoded into the sorted union of both, and
+# an order is the strings' order (the JAX package compares and sorts the
+# codes of different dictionaries).  Per-row work is ``ops/arrays.py``
+# over the elements' int64 keys (``_elem_keys``).
+
+def _strs(d: Optional[Dictionary]) -> list:
+    return [] if d is None else [str(s) for s in d.strings]
+
+
+def _union(*parts: list) -> Tuple[np.ndarray, list]:
+    """The sorted distinct strings of ``parts`` and, for each part, the
+    position of each of its strings there."""
+    union = np.unique(np.array([s for p in parts for s in p], dtype=str))
+    return union, [np.searchsorted(union, np.array(p, dtype=str)).astype(
+        np.int64) for p in parts]
+
+
+def _table(a: np.ndarray, dev) -> torch.Tensor:
+    """A host lookup table on ``dev`` (one 0 entry when empty, so that a
+    gather of padding codes stays in range)."""
+    return torch.from_numpy(a if a.shape[0] else np.zeros(1, a.dtype)).to(dev)
+
+
+def _string_arg(expr: ir.Func, i: int, col: DCol):
+    """(distinct strings, each row's index among them) of string argument
+    ``i``; a literal is one string, not a broadcast byte matrix."""
+    a = expr.args[i]
+    if isinstance(a, ir.Literal) and isinstance(a.value, str):
+        return [a.value], torch.zeros((col.n_rows,), dtype=torch.int64,
+                                      device=col.values.device)
+    return _host_strings(col)
+
+
+def _elem_keys(values: torch.Tensor, d: Optional[Dictionary],
+               et: T.DataType) -> torch.Tensor:
+    """int64 keys of ``[N, W]`` elements by value: a string's position
+    among its dictionary's sorted distinct strings, a DOUBLE's
+    order-preserving bits, else the value."""
+    if T.is_string(et):
+        _, (rank,) = _union(_strs(d))
+        return _table(rank, values.device)[values.to(torch.int64)]
+    if values.is_floating_point():
+        return SORT.f64_sort_key(values.contiguous())
+    return values.to(torch.int64)
+
+
+def _numeric_keys(va: torch.Tensor, ta: T.DataType, vb: torch.Tensor,
+                  tb: T.DataType):
+    """Two numeric operands' values as comparable int64 keys: DOUBLE
+    against anything in float64 bits, else at the larger decimal scale."""
+    if isinstance(ta, T.DoubleType) or isinstance(tb, T.DoubleType):
+        def f(v, t):
+            s = _scale_of(t)
+            v = v.to(torch.float64)
+            return SORT.f64_sort_key((v / float(10 ** s) if s else v)
+                                     .contiguous())
+        return f(va, ta), f(vb, tb)
+    s = max(_scale_of(ta), _scale_of(tb))
+    return (D.rescale(va.to(torch.int64), _scale_of(ta), s),
+            D.rescale(vb.to(torch.int64), _scale_of(tb), s))
+
+
+def _probe_keys(expr: ir.Func, values: torch.Tensor, d, et: T.DataType,
+                x: DCol):
+    """(keys [N, W] of ``values``, keys [N] of argument 1) comparable by
+    value: strings as positions in the sorted union of both sides'
+    strings, numbers as ``_numeric_keys``."""
+    if T.is_string(et):
+        xs, xc = _string_arg(expr, 1, x)
+        _, (ra, rx) = _union(_strs(d), xs)
+        dev = values.device
+        return _table(ra, dev)[values.to(torch.int64)], _table(rx, dev)[xc]
+    if x.kind != PLAIN or _is_i128(x):
+        raise NotImplementedError(f"{expr.name} of a {x.kind} {x.dtype}")
+    ka, kx = _numeric_keys(values, et, x.values[:, None], x.dtype)
+    return ka, kx[:, 0]
+
+
+def _pair(a: DCol, b: DCol):
+    """Two ARRAY operands as (keys of a, keys of b, a's values, b's
+    values as a's element type, their dictionary): string elements
+    recoded into the sorted union of both dictionaries (its positions are
+    both the keys and the new codes), numbers compared at a common
+    scale."""
+    ea, eb = a.dtype.element, b.dtype.element
+    dev = a.values.device
+    if T.is_string(ea) or T.is_string(eb):
+        union, (ra, rb) = _union(_strs(a.dictionary), _strs(b.dictionary))
+        ka = _table(ra, dev)[a.values.to(torch.int64)]
+        kb = _table(rb, dev)[b.values.to(torch.int64)]
+        return ka, kb, ka.to(torch.int32), kb.to(torch.int32), \
+            Dictionary(union.astype(object))
+    ka, kb = _numeric_keys(a.values, ea, b.values, eb)
+    return ka, kb, a.values, _cast_elements(b.values, eb, ea), None
+
+
+def _array(dtype, values, lengths, validity, d=None) -> DCol:
+    return DCol(dtype, ARRAY, values, lengths.to(torch.int32), validity, d)
+
+
+def _element(dtype, values, validity, d) -> DCol:
+    """One element per row as a scalar column (DICT over ``d`` for a
+    string element)."""
+    if T.is_string(dtype):
+        return DCol(dtype, DICT, values.to(torch.int32), validity=validity,
+                    dictionary=d or Dictionary(np.array([""], dtype=object)))
+    return DCol(dtype, PLAIN, values, validity=validity)
+
+
+def _need_nested(expr, a: DCol, kinds=(ARRAY, MAP)) -> None:
+    if a.kind not in kinds:
+        raise NotImplementedError(f"{expr.name} of a {a.kind} {a.dtype}")
+
+
+def _array_pack(expr, args) -> DCol:
+    """``ARRAY[e1, ...]``: the arguments side by side; string elements
+    coded over the sorted union of the arguments' strings, numbers at the
+    element type's scale (int64, a long-decimal type's too).  A row with
+    a NULL argument is a NULL array, as in the JAX package."""
+    et = expr.dtype.element
+    dev, n = args[0].values.device, args[0].n_rows
+    validity = _and_validity(*(a.validity for a in args))
+    if T.is_string(et):
+        parts = [_string_arg(expr, i, a) for i, a in enumerate(args)]
+        union, ranks = _union(*(p[0] for p in parts))
+        cols = [_table(r, dev)[c].to(torch.int32)
+                for r, (_, c) in zip(ranks, parts)]
+        return _array(expr.dtype, torch.stack(cols, 1),
+                      torch.full((n,), len(args), device=dev), validity,
+                      Dictionary(union.astype(object)))
+    cols = []
+    for a in args:
+        if a.kind != PLAIN or _is_i128(a):
+            raise NotImplementedError(f"ARRAY of {a.kind} {a.dtype}")
+        if isinstance(et, T.DoubleType):
+            cols.append(as_double(a))
+        elif T.is_decimal(et):
+            cols.append(D.rescale(a.values.to(torch.int64),
+                                  _scale_of(a.dtype), _scale_of(et)))
+        else:
+            cols.append(a.values.to(_torch_dtype(et)))
+    return _array(expr.dtype, torch.stack(cols, 1),
+                  torch.full((n,), len(args), device=dev), validity)
+
+
+def _torch_dtype(t: T.DataType) -> torch.dtype:
+    """The tensor dtype of a scalar type's values (a string: its codes)."""
+    if T.is_string(t):
+        return torch.int32
+    return {np.int64: torch.int64, np.int32: torch.int32,
+            np.bool_: torch.bool, np.float64: torch.float64}[t.np_dtype]
+
+
+def _map_pack(expr, args) -> DCol:
+    """``MAP(ARRAY[k...], ARRAY[v...])``: keys and values padded to one
+    width, each over its own dictionary."""
+    k, v = args
+    _need_nested(expr, k, (ARRAY,))
+    _need_nested(expr, v, (ARRAY,))
+    w = max(k.values.shape[1], v.values.shape[1])
+    return DCol(expr.dtype, MAP, AR.pad_width(k.values, w),
+                torch.minimum(k.lengths, v.lengths).to(torch.int32),
+                _and_validity(k.validity, v.validity), k.dictionary,
+                AR.pad_width(v.values, w), v.dictionary)
+
+
+def _sequence(expr, args) -> DCol:
+    """``sequence(lo, hi[, step])`` of integer literals."""
+    lo, hi = _lit_int(expr, 0, "bound"), _lit_int(expr, 1, "bound")
+    step = _lit_int(expr, 2, "step") if len(expr.args) > 2 else 1
+    if step == 0:
+        raise ValueError("sequence step must not be 0")
+    w = max((hi - lo) // step + 1, 0)
+    n = args[0].n_rows
+    dev = args[0].values.device
+    row = lo + torch.arange(w, dtype=torch.int64, device=dev) * step
+    return _array(expr.dtype, row[None, :].expand(n, w).contiguous(),
+                  torch.full((n,), w, device=dev), None)
+
+
+def _cardinality(expr, args) -> DCol:
+    a = args[0]
+    _need_nested(expr, a)
+    return DCol(T.BIGINT, PLAIN, a.lengths.to(torch.int64),
+                validity=a.validity)
+
+
+def _element_at(expr, args) -> DCol:
+    """``element_at(array, i)`` and ``array[i]``: 1-based, a negative
+    ``i`` from the end; NULL outside the array."""
+    a, idx = args
+    _need_nested(expr, a, (ARRAY,))
+    i = idx.values.to(torch.int64)
+    ln = a.lengths.to(torch.int64)
+    pos = torch.where(i > 0, i - 1, ln + i)
+    ok = (pos >= 0) & (pos < ln)
+    v = AR.take_rows(a.values, pos[:, None])[:, 0]
+    return _element(expr.dtype, v, _and_validity(a.validity, idx.validity,
+                                                 ok), a.dictionary)
+
+
+def _map_element_at(expr, args) -> DCol:
+    """``element_at(map, key)`` and ``map[key]``: the value at the first
+    key equal to the probe by value (a string key through the strings of
+    both sides), NULL when none is."""
+    m, x = args
+    _need_nested(expr, m, (MAP,))
+    kk, kx = _probe_keys(expr, m.values, m.dictionary, m.dtype.key, x)
+    eq = (kk == kx[:, None]) & AR.pos_grid(m.values.shape[1], m.lengths)
+    found = eq.any(1)
+    pos = eq.to(torch.int8).argmax(1) if eq.shape[1] else \
+        torch.zeros((m.n_rows,), dtype=torch.int64, device=eq.device)
+    v = AR.take_rows(m.values2, pos[:, None])[:, 0]
+    return _element(expr.dtype, v, _and_validity(m.validity, x.validity,
+                                                 found), m.dictionary2)
+
+
+def _contains_position(expr, args) -> DCol:
+    """``contains(array, x)`` and ``array_position(array, x)`` (1-based,
+    0 when absent), by value."""
+    a, x = args
+    _need_nested(expr, a, (ARRAY,))
+    ka, kx = _probe_keys(expr, a.values, a.dictionary, a.dtype.element, x)
+    eq = (ka == kx[:, None]) & AR.pos_grid(a.values.shape[1], a.lengths)
+    valid = _and_validity(a.validity, x.validity)
+    if expr.name == "contains":
+        return DCol(T.BOOLEAN, PLAIN, eq.any(1), validity=valid)
+    pos = torch.where(eq.any(1), eq.to(torch.int8).argmax(1) + 1, 0) \
+        if eq.shape[1] else torch.zeros((a.n_rows,), dtype=torch.int64,
+                                        device=eq.device)
+    return DCol(T.BIGINT, PLAIN, pos.to(torch.int64), validity=valid)
+
+
+def _array_min_max(expr, args) -> DCol:
+    """The least (greatest) element by value, a string by its string
+    (the JAX package returns a string element's least code); NULL for an
+    empty array."""
+    a = args[0]
+    _need_nested(expr, a, (ARRAY,))
+    k = _elem_keys(a.values, a.dictionary, a.dtype.element)
+    pos = AR.extreme_pos(k, a.lengths, expr.name == "array_max")
+    v = AR.take_rows(a.values, pos[:, None])[:, 0]
+    return _element(expr.dtype, v, _and_validity(a.validity, a.lengths > 0),
+                    a.dictionary)
+
+
+def _reorder(a: DCol, pos: torch.Tensor, lengths, dtype=None) -> DCol:
+    return _array(dtype or a.dtype, AR.take_rows(a.values, pos), lengths,
+                  a.validity, a.dictionary)
+
+
+def _array_sort(expr, args) -> DCol:
+    """Each row's elements in ascending order of value (strings by
+    string; the JAX package sorts a string array's codes)."""
+    a = args[0]
+    _need_nested(expr, a, (ARRAY,))
+    k = _elem_keys(a.values, a.dictionary, a.dtype.element)
+    return _reorder(a, AR.sort_order(k, a.lengths), a.lengths)
+
+
+def _array_distinct(expr, args) -> DCol:
+    """Each row's distinct elements, the first occurrence of each in
+    order (Trino; the JAX package returns them sorted)."""
+    a = args[0]
+    _need_nested(expr, a, (ARRAY,))
+    pos, ln = AR.distinct_order(
+        _elem_keys(a.values, a.dictionary, a.dtype.element), a.lengths)
+    return _reorder(a, pos, ln)
+
+
+def _map_keys_values(expr, args) -> DCol:
+    m = args[0]
+    _need_nested(expr, m, (MAP,))
+    if expr.name == "map_keys":
+        return _array(expr.dtype, m.values, m.lengths, m.validity,
+                      m.dictionary)
+    return _array(expr.dtype, m.values2, m.lengths, m.validity,
+                  m.dictionary2)
+
+
+def _slice(expr, args) -> DCol:
+    """``slice(array, start, length)`` with literal bounds; a negative
+    start (from the end) raises, as the JAX package refuses it."""
+    a = args[0]
+    _need_nested(expr, a, (ARRAY,))
+    start = _lit_int(expr, 1, "start")
+    ln = max(_lit_int(expr, 2, "length"), 0)
+    if start < 0:
+        raise NotImplementedError("slice with a negative start")
+    if start == 0:
+        raise ValueError("SQL array indices start at 1")
+    vals = a.values[:, start - 1:start - 1 + ln]
+    lengths = (a.lengths.to(torch.int64) - (start - 1)).clamp(0, ln)
+    return _array(expr.dtype, vals, lengths, a.validity, a.dictionary)
+
+
+def _repeat(expr, args) -> DCol:
+    """``repeat(x, k)``, ``k`` a literal: ``k`` copies of x."""
+    x = args[0]
+    k = max(_lit_int(expr, 1, "count"), 0)
+    n, dev = x.n_rows, x.values.device
+    if T.is_string(x.dtype):
+        strs, codes = _string_arg(expr, 0, x)
+        union, (rank,) = _union(strs)
+        v, d = _table(rank, dev)[codes].to(torch.int32), \
+            Dictionary(union.astype(object))
+    elif x.kind == PLAIN and not _is_i128(x):
+        v, d = x.values, None
+    else:
+        raise NotImplementedError(f"repeat of a {x.kind} {x.dtype}")
+    return _array(expr.dtype, v[:, None].expand(n, k).contiguous(),
+                  torch.full((n,), k, device=dev), x.validity, d)
+
+
+def _distinct_arrays(a: DCol):
+    """(the distinct arrays of ``a``'s rows as host lists of Python
+    values, each row's index among them): one ``torch.unique`` over the
+    rows, padding zeroed, then only the distinct rows decoded."""
+    v = AR.zero_padding(a.values, a.lengths)
+    bits = v.contiguous().view(torch.int64) \
+        if v.dtype == torch.float64 else v.to(torch.int64)
+    rows = torch.cat([a.lengths.to(torch.int64)[:, None], bits], 1)
+    if rows.shape[0] == 0:
+        return [], torch.zeros((0,), dtype=torch.int64, device=v.device)
+    uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
+    host = uniq.cpu().numpy()
+    et = a.dtype.element
+    strs = np.array(_strs(a.dictionary), dtype=object)
+    out = []
+    for row in host:
+        e = row[1:1 + row[0]]
+        if T.is_string(et):
+            out.append(strs[e].tolist())
+        elif v.dtype == torch.float64:
+            out.append(e.view(np.float64).tolist())
+        elif v.dtype == torch.bool:
+            out.append([bool(x) for x in e])
+        else:
+            out.append(e.tolist())
+    return out, inv
+
+
+def _array_join(expr, args) -> DCol:
+    """``array_join(array, sep)``: the elements' text joined (decimals as
+    their value, as in the JAX package), over the distinct arrays."""
+    a = args[0]
+    _need_nested(expr, a, (ARRAY,))
+    sep = _lit_str(expr, 1, "separator")
+    rows, inv = _distinct_arrays(a)
+    s = _scale_of(a.dtype.element)
+    strs = [sep.join(str(e / 10 ** s if s else e) for e in r) for r in rows]
+    return _dict_result(strs, inv, a.validity, expr.dtype)
+
+
+def _arrays_overlap(expr, args) -> DCol:
+    a, b = args
+    _need_nested(expr, a, (ARRAY,))
+    _need_nested(expr, b, (ARRAY,))
+    ka, kb, *_ = _pair(a, b)
+    _, member = AR.member_mask(ka, a.lengths, kb, b.lengths)
+    return DCol(T.BOOLEAN, PLAIN, member.any(1),
+                validity=_and_validity(a.validity, b.validity))
+
+
+def _array_set_op(expr, args) -> DCol:
+    """``array_except``/``array_intersect``: a's distinct elements not in
+    (in) b, in a's order; ``array_union``: a's distinct elements, then
+    b's not in a.  Elements compare by value: strings through the union
+    of both dictionaries (the JAX package compares their codes)."""
+    a, b = args
+    _need_nested(expr, a, (ARRAY,))
+    _need_nested(expr, b, (ARRAY,))
+    ka, kb, va, vb, d = _pair(a, b)
+    ina, in_b = AR.member_mask(ka, a.lengths, kb, b.lengths)
+    first = AR.first_occurrence(ka, ina)
+    valid = _and_validity(a.validity, b.validity)
+    if expr.name != "array_union":
+        keep = first & (in_b if expr.name == "array_intersect" else ~in_b)
+        pos, ln = AR.compact_order(keep)
+        return _array(expr.dtype, AR.take_rows(va, pos), ln, valid, d)
+    inb_w, b_in_a = AR.member_mask(kb, b.lengths, ka, a.lengths)
+    keep = torch.cat([first, AR.first_occurrence(kb, inb_w) & ~b_in_a], 1)
+    pos, ln = AR.compact_order(keep)
+    return _array(expr.dtype, AR.take_rows(torch.cat([va, vb], 1), pos), ln,
+                  valid, d)
+
+
+def _split(expr, args) -> DCol:
+    """``split(s, delim)``, a literal delimiter.  A byte-matrix column split
+    on a one-byte delimiter is cut on the device and its words interned
+    by one ``torch.unique`` (only the distinct words go to the host);
+    otherwise each distinct string is split on the host.  The parts are
+    codes over their distinct values."""
+    if len(args) != 2:
+        raise NotImplementedError("split with a limit")
+    delim = _lit_str(expr, 1, "delimiter")
+    if not delim:
+        raise NotImplementedError("split on an empty delimiter")
+    a = args[0]
+    if a.kind == BYTES and len(delim) == 1 and a.values.shape[1]:
+        return _split_bytes(expr, a, ord(delim))
+    strs, codes = _host_strings(a)
+    parts = [s.split(delim) for s in strs]
+    union = sorted({p for ps in parts for p in ps})
+    code_of = {p: i for i, p in enumerate(union)}
+    lens = np.array([len(ps) for ps in parts], np.int64)
+    w = int(lens.max()) if lens.shape[0] else 0
+    table = np.zeros((max(len(parts), 1), w), np.int32)
+    flat = np.array([code_of[p] for ps in parts for p in ps], np.int32)
+    rows = np.repeat(np.arange(len(parts)), lens)
+    table[rows, np.arange(flat.shape[0]) - np.repeat(
+        np.cumsum(lens) - lens, lens)] = flat
+    dev = codes.device
+    return _array(expr.dtype, _table(table, dev)[codes],
+                  _table(lens, dev)[codes], a.validity,
+                  Dictionary(np.array(union, dtype=object)))
+
+
+def _split_bytes(expr, a: DCol, delim: int) -> DCol:
+    """``split`` of a BYTES column on the byte ``delim``: each row's
+    delimiter positions in order (one stable sort of the row), each
+    word's (row, ordinal, start, length), the words' byte packs made
+    distinct by ``torch.unique`` (their codes), and the rows' codes
+    scattered into ``[N, most words]``.  Three host reads of sizes and
+    one of the distinct words."""
+    v, ln = a.values, a.lengths.to(torch.int64)
+    n, w = v.shape
+    dev = v.device
+    isd = (v == delim) & AR.pos_grid(w, ln)
+    nd = isd.sum(1)
+    nwords = nd + 1
+    dpos = torch.sort((~isd).to(torch.int8), dim=1, stable=True).indices
+    total, most = (torch.stack([nwords.sum(), nwords.max()]).tolist()
+                   if n else (0, 0))
+    row = torch.repeat_interleave(torch.arange(n, device=dev), nwords,
+                                  output_size=total)
+    k = torch.arange(total, device=dev) - (torch.cumsum(nwords, 0)
+                                           - nwords)[row]
+    start = torch.where(k == 0, 0, dpos[row, (k - 1).clamp(0, w - 1)] + 1)
+    end = torch.where(k == nd[row], ln[row], dpos[row, k.clamp(0, w - 1)])
+    wlen = end - start
+    wmax = max(int(wlen.max()) if total else 0, 1)
+    j = torch.arange(wmax, device=dev)
+    mat = torch.where(j[None, :] < wlen[:, None],
+                      v[row[:, None], (start[:, None] + j).clamp(max=w - 1)],
+                      0)
+    key = torch.stack(SORT.bytes_sort_keys(mat, wlen) + [wlen], 1)
+    uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+    host = uniq.cpu().numpy()
+    words = [host[i, :-1].astype(">i8").tobytes()[:host[i, -1]].decode(
+        "ascii") for i in range(host.shape[0])]
+    out = torch.zeros((n * most,), dtype=torch.int32, device=dev)
+    out[row * most + k] = inv.to(torch.int32)
+    return _array(expr.dtype, out.reshape(n, most), nwords, a.validity,
+                  Dictionary(np.array(words, dtype=object)))
+
+
+def _nested_null(t: T.DataType, n: int, dev) -> DCol:
+    """A NULL ARRAY or MAP of ``n`` rows: zero-width, no valid row."""
+    key = t.element if isinstance(t, T.ArrayType) else t.key
+    z = torch.zeros((n, 0), dtype=_torch_dtype(key), device=dev)
+    never = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if isinstance(t, T.ArrayType):
+        return _array(t, z, torch.zeros((n,), device=dev), never)
+    return DCol(t, MAP, z, torch.zeros((n,), dtype=torch.int32, device=dev),
+                never, None, torch.zeros((n, 0), dtype=_torch_dtype(t.value),
+                                         device=dev))
+
+
+def _cast_elements(values: torch.Tensor, frm: T.DataType, to: T.DataType):
+    """Nested elements from type ``frm`` to ``to``: strings keep their
+    codes, numbers convert as scalars do."""
+    if frm == to or (T.is_string(frm) and T.is_string(to)):
+        return values
+    if T.is_decimal(frm) and T.is_decimal(to):  # elements are int64
+        return D.rescale(values.to(torch.int64), frm.scale, to.scale)
+    if T.is_string(frm) or T.is_string(to) or T.is_long_decimal(to):
+        raise NotImplementedError(f"cast of elements {frm} -> {to}")
+    c = _cast(DCol(frm, PLAIN, values.reshape(-1)), to).values
+    return c.reshape(values.shape)
+
+
+def _cast_nested(col: DCol, to: T.DataType) -> DCol:
+    if col.kind == ARRAY and isinstance(to, T.ArrayType):
+        return _array(to, _cast_elements(col.values, col.dtype.element,
+                                         to.element), col.lengths,
+                      col.validity, col.dictionary)
+    if col.kind == MAP and isinstance(to, T.MapType):
+        return DCol(to, MAP, _cast_elements(col.values, col.dtype.key,
+                                            to.key), col.lengths,
+                    col.validity, col.dictionary,
+                    _cast_elements(col.values2, col.dtype.value, to.value),
+                    col.dictionary2)
+    raise NotImplementedError(f"cast {col.dtype} -> {to}")
+
+
+def nested_layouts(cols, rt: T.DataType):
+    """ARRAY or MAP columns of type ``rt`` on one layout: (values,
+    values2 or None, dictionary, dictionary2), the values padded to the
+    widest column and their string elements recoded into the sorted union
+    of the columns' dictionaries (keys and map values apart)."""
+    cols = [c if c.dtype == rt else _cast_nested(c, rt) for c in cols]
+    is_map = isinstance(rt, T.MapType)
+    w = max(c.values.shape[1] for c in cols)
+    dev = cols[0].values.device
+
+    def unify(get_v, get_d, et):
+        if not T.is_string(et):
+            dt = _torch_dtype(et)
+            return [AR.pad_width(get_v(c).to(dt), w) for c in cols], None
+        union, ranks = _union(*(_strs(get_d(c)) for c in cols))
+        return [AR.pad_width(_table(r, dev)[get_v(c).to(torch.int64)].to(
+            torch.int32), w) for r, c in zip(ranks, cols)], \
+            Dictionary(union.astype(object))
+
+    vals, d = unify(lambda c: c.values, lambda c: c.dictionary,
+                    rt.key if is_map else rt.element)
+    if not is_map:
+        return vals, None, d, None
+    vals2, d2 = unify(lambda c: c.values2, lambda c: c.dictionary2, rt.value)
+    return vals, vals2, d, d2
+
+
+def _eval_case_nested(expr: ir.Case, chunk: Chunk) -> DCol:
+    """Searched CASE with an ARRAY or MAP result: the branches on one
+    layout (``nested_layouts``), merged row by row (values, lengths,
+    validity together)."""
+    rt = expr.dtype
+    branches = [(eval_predicate(c, chunk), eval_expr(v, chunk))
+                for c, v in expr.whens]
+    default = (eval_expr(expr.default, chunk) if expr.default is not None
+               else _nested_null(rt, chunk.n_rows, chunk.mask.device))
+    cols = [default] + [b for _, b in branches]
+    vals, vals2, d, d2 = nested_layouts(cols, rt)
+    out, out2 = vals[0], None if vals2 is None else vals2[0]
+    ln, valid = default.lengths, default.valid_or_true()
+    for i in range(len(branches), 0, -1):  # the first true WHEN wins
+        cm, c = branches[i - 1][0], cols[i]
+        out = torch.where(cm[:, None], vals[i], out)
+        if out2 is not None:
+            out2 = torch.where(cm[:, None], vals2[i], out2)
+        ln = torch.where(cm, c.lengths, ln)
+        valid = torch.where(cm, c.valid_or_true(), valid)
+    return DCol(rt, MAP if out2 is not None else ARRAY, out,
+                ln.to(torch.int32), valid, d, out2, d2)
+
+
 def _constant(c: float):
     def run(expr, chunk: Chunk) -> DCol:
         return DCol(T.DOUBLE, PLAIN, torch.full(
@@ -1707,6 +2287,19 @@ _FUNCS = {"abs": _abs, "round": _round, "coalesce": _coalesce,
           "url_extract_port": _url_extract_port, "concat_ws": _concat_ws,
           "format": _format, "levenshtein_distance": _distance,
           "hamming_distance": _distance,
+          # nested values
+          "array_pack": _array_pack, "map_pack": _map_pack,
+          "sequence": _sequence, "cardinality": _cardinality,
+          "element_at": _element_at, "map_element_at": _map_element_at,
+          "contains": _contains_position,
+          "array_position": _contains_position,
+          "array_min": _array_min_max, "array_max": _array_min_max,
+          "array_sort": _array_sort, "array_distinct": _array_distinct,
+          "map_keys": _map_keys_values, "map_values": _map_keys_values,
+          "slice": _slice, "repeat": _repeat, "array_join": _array_join,
+          "arrays_overlap": _arrays_overlap,
+          "array_except": _array_set_op, "array_intersect": _array_set_op,
+          "array_union": _array_set_op, "split": _split,
           **{name: _host_string for name in (
               "replace", "translate", "split_part", "regexp_extract",
               "regexp_replace", "json_extract_scalar", "to_hex",
@@ -1729,6 +2322,8 @@ def _eval_case(expr: ir.Case, chunk: Chunk) -> DCol:
     dbl = isinstance(rt, T.DoubleType)
     if T.is_string(rt):
         return _eval_case_strings(expr, chunk)
+    if isinstance(rt, (T.ArrayType, T.MapType)):
+        return _eval_case_nested(expr, chunk)
     if not (T.is_decimal(rt) or T.is_integral(rt) or dbl
             or isinstance(rt, T.DateType)):
         raise NotImplementedError(f"CASE returning {rt}")
@@ -1820,6 +2415,8 @@ def _cast(col: DCol, to: T.DataType) -> DCol:
     timestamp types (``_cast_datetime``)."""
     if col.dtype == to:
         return col
+    if col.kind in (ARRAY, MAP):
+        return _cast_nested(col, to)
     if T.is_string(to) and T.is_string(col.dtype):
         return DCol(to, col.kind, col.values, col.lengths, col.validity,
                     col.dictionary)

@@ -64,9 +64,17 @@ MATCH_RECOGNIZE (``_exec_match_recognize``) sorts once by (partition,
 order) and runs the pattern's DFA over every start row in lockstep
 (``ops/pattern.py``).
 
+Nested values: UNNEST (``_exec_unnest``) expands each row once per element
+of its longest argument (one host read of the total); array_agg, map_agg,
+histogram and min(x, n)/max(x, n) (``_agg_nested``, grouped and global by
+``Groups``/``Whole``) pack each group's values into ``[groups, widest]``
+(one host read of the width); UNION ALL, joins, LIMIT and GROUPING SETS
+carry ARRAY and MAP columns, padded and recoded over one dictionary where
+they meet.  An ARRAY or MAP as a group, join, DISTINCT or sort key
+raises.
+
 Not ported yet (they raise ``NotImplementedError`` naming the operator or
-aggregate): UNNEST, DISTINCT on any aggregate but count, and nested-value
-aggregates (``min(x, n)``, ``array_agg``, ...).
+aggregate): DISTINCT on any aggregate but count.
 """
 
 from __future__ import annotations
@@ -79,7 +87,8 @@ import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import PLAIN, DICT, BYTES
+from ..data.column import PLAIN, DICT, BYTES, ARRAY, MAP
+from ..ops import arrays as AR
 from ..ops import agg as A
 from ..ops import decimal as DEC
 from ..ops import hashing as HASH
@@ -91,15 +100,16 @@ from ..ops import sort as SORT
 from ..ops import window as W
 from ..sql import ir
 from ..utils.memory import chunk_bytes, col_bytes
-from .columns import Chunk, DCol
-from .expreval import (_pad_bytes, _rank_in, as_double, dcol_to_bytes,
-                       dictionary_bytes, eval_expr, eval_predicate, refuse_row_numbering,
+from .columns import Chunk, DCol, Dictionary
+from .expreval import (_element, _host_strings, _pad_bytes, _rank_in,
+                       as_double, dcol_to_bytes, dictionary_bytes, eval_expr,
+                       eval_predicate, nested_layouts, refuse_row_numbering,
                        shifted_name)
 from .plan import (CORR_FUNCS, VARIANCE_FUNCS, AggSpec, PhysConcat,
                    PhysFilter, PhysGroupId, PhysHashAggregate, PhysHashJoin,
                    PhysLimit, PhysMatchRecognize, PhysMaterial, PhysOp,
-                   PhysProject, PhysScalarBind,
-                   PhysScan, PhysSort, PhysWindow, WindowSpec,
+                   PhysProject, PhysScalarBind, PhysScan, PhysSort,
+                   PhysUnnest, PhysWindow, WindowSpec,
                    _agg_output_type, _scale_of)
 
 SEG_DIRECT_CAP = 512  # largest key domain grouped by its composite code
@@ -190,6 +200,8 @@ def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
                         plan.gid_name)
     if isinstance(plan, PhysMatchRecognize):
         return _exec_match_recognize(plan, ctx)
+    if isinstance(plan, PhysUnnest):
+        return _exec_unnest(plan, ctx)
     raise NotImplementedError(f"{type(plan).__name__} on the torch path")
 
 
@@ -234,7 +246,8 @@ def _exec_limit(child: Chunk, n: int) -> Chunk:
                        None if c.lengths is None else c.lengths[:n],
                        None if c.validity is None else c.validity[:n],
                        c.dictionary,
-                       None if c.values2 is None else c.values2[:n])
+                       None if c.values2 is None else c.values2[:n],
+                       c.dictionary2)
             for name, c in child.cols.items()}
     return Chunk(cols, child.mask[:n])
 
@@ -293,7 +306,8 @@ def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
 def _col_keys(c: DCol) -> List[torch.Tensor]:
     """One column's int64 key tensors: the big-endian packs of a BYTES
     column, both words of a long decimal, the order-preserving bits of a
-    DOUBLE, else its values."""
+    DOUBLE, else its values; an ARRAY or MAP raises."""
+    _refuse_nested_key(c)
     if c.kind == BYTES:
         return SORT.bytes_sort_keys(c.values, c.lengths)
     if c.values.dim() == 2:
@@ -301,6 +315,12 @@ def _col_keys(c: DCol) -> List[torch.Tensor]:
     if c.values.is_floating_point():
         return [SORT.f64_sort_key(c.values)]
     return [c.values.to(torch.int64)]
+
+
+def _refuse_nested_key(c: DCol) -> None:
+    if c.kind in (ARRAY, MAP):
+        raise NotImplementedError(
+            f"an {c.dtype} value as a group, join, DISTINCT or sort key")
 
 
 def _group_key_arrays(chunk: Chunk, exprs: Sequence) -> List[torch.Tensor]:
@@ -396,7 +416,9 @@ def _value_packs(c: DCol) -> List[torch.Tensor]:
     """Integer tensors, most significant first, that order a column's rows
     by value: the packs of a BYTES column, the (hi signed, lo unsigned)
     words of a long decimal, a DICT code's rank among its dictionary's
-    strings, a DOUBLE's order-preserving bits, else the values."""
+    strings, a DOUBLE's order-preserving bits, else the values; an ARRAY
+    or MAP raises."""
+    _refuse_nested_key(c)
     if c.kind == BYTES:
         return SORT.bytes_sort_keys(c.values, c.lengths)
     if c.values.dim() == 2:
@@ -794,7 +816,7 @@ def _groupid(chunk: Chunk, keys, sets, gid_name: str) -> Chunk:
         cols[out_name] = DCol(kc.dtype, kc.kind, kc.values, kc.lengths,
                               part if kc.validity is None
                               else kc.validity & part, kc.dictionary,
-                              kc.values2)
+                              kc.values2, kc.dictionary2)
     cols[gid_name] = DCol(T.BIGINT, PLAIN, setid.to(torch.int64))
     return Chunk(cols, copies.mask)
 
@@ -866,7 +888,7 @@ def _exec_agg(plan: PhysHashAggregate, ctx: ExecContext) -> Chunk:
             raise NotImplementedError(
                 f"{spec.func}(DISTINCT) on the torch path")
     if not plan.groups:
-        return _exec_global_agg(plan, child)
+        return _exec_global_agg(plan, child, ctx)
     k = _tier_partitions(ctx, 3 * chunk_bytes(child))
     if k > 1:
         return _exec_agg_partitioned(plan, child, ctx, k)
@@ -914,7 +936,7 @@ def _agg_core(plan: PhysHashAggregate, child: Chunk,
         out[spec.name] = (
             _agg_distinct(spec, child, slot, capacity, gvalid, ctx)
             if spec.distinct else
-            _agg_col(spec, child, slot, capacity, gvalid))
+            _agg_col(spec, child, slot, capacity, gvalid, ctx))
     return _maybe_compact(Chunk(out, gvalid), ctx)
 
 
@@ -1256,7 +1278,8 @@ def _agg_more(spec: AggSpec, c: DCol, chunk: Chunk, mask, R: Groups) -> DCol:
     return DCol(_agg_output_type(spec), PLAIN, v, validity=R.gvalid & ok)
 
 
-def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
+def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid,
+             ctx: ExecContext) -> DCol:
     mask = chunk.mask & (slot >= 0)
     if spec.func == "count_star":
         return DCol(T.BIGINT, PLAIN, A.seg_count(slot, mask, capacity),
@@ -1266,6 +1289,13 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         refuse_zoned(c, spec.func)
     if spec.func in MORE_FUNCS:
         return _agg_more(spec, c, chunk, mask, Groups(slot, capacity, gvalid))
+    if spec.func in NESTED_AGGS:
+        return _agg_nested(spec, c, chunk, mask,
+                           Groups(slot, capacity, gvalid), ctx)
+    if c.kind in (ARRAY, MAP) and spec.func not in ("count", "arbitrary",
+                                                    "any_value"):
+        raise NotImplementedError(
+            f"grouped {spec.func}({c.dtype}) on the torch path")
     vmask = mask & c.valid_or_true()
     vals = c.values
     ot = _agg_output_type(spec)
@@ -1333,7 +1363,8 @@ def _agg_col(spec: AggSpec, chunk: Chunk, slot, capacity, gvalid) -> DCol:
         f"grouped {spec.func}({c.dtype}, {c.kind}) on the torch path")
 
 
-def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
+def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk,
+                     ctx: ExecContext) -> Chunk:
     out: Dict[str, DCol] = {}
     whole = None
     for spec in plan.aggs:
@@ -1356,9 +1387,19 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         if spec.func == "count":
             out[spec.name] = DCol(T.BIGINT, PLAIN, A.g_count(m).reshape(1))
             continue
-        if spec.func in MORE_FUNCS:
+        if spec.func in MORE_FUNCS or spec.func in NESTED_AGGS:
             whole = whole or Whole(chunk.n_rows, chunk.mask.device)
-            out[spec.name] = _agg_more(spec, c, chunk, chunk.mask, whole)
+            out[spec.name] = (_agg_more(spec, c, chunk, chunk.mask, whole)
+                              if spec.func in MORE_FUNCS else _agg_nested(
+                                  spec, c, chunk, chunk.mask, whole, ctx))
+            continue
+        if spec.func in ("arbitrary", "any_value"):
+            # the first row with a value, gathered whole (any layout)
+            ridx = torch.arange(chunk.n_rows, dtype=torch.int64,
+                                device=m.device)
+            first = A.g_min(ridx, m).reshape(1)
+            out[spec.name] = c.take(first.clamp(max=max(chunk.n_rows - 1, 0)),
+                                    valid=nonempty)
             continue
         if spec.func == "approx_distinct":
             regs = HLL.global_state(value_hash(c), m)
@@ -1408,6 +1449,161 @@ def _exec_global_agg(plan: PhysHashAggregate, chunk: Chunk) -> Chunk:
         out[spec.name] = DCol(ot, PLAIN, v, validity=nonempty)
     return Chunk(out, torch.ones((1,), dtype=torch.bool,
                                  device=chunk.mask.device))
+
+
+# ---------------------------------------------------------------- nested values
+
+# aggregates whose result is an ARRAY or a MAP (``_agg_nested``)
+NESTED_AGGS = frozenset({"array_agg", "map_agg", "histogram", "min_n",
+                         "max_n"})
+
+
+def _scalar(c: DCol) -> DCol:
+    """A BYTES column as DICT over its distinct strings (host-decoded), so
+    that its values can be elements of an ARRAY or MAP; other layouts as
+    they are."""
+    if c.kind != BYTES:
+        return c
+    strs, codes = _host_strings(c)
+    return DCol(c.dtype, DICT, codes.to(torch.int32), validity=c.validity,
+                dictionary=Dictionary(np.array(strs, dtype=object)))
+
+
+def _elements(c: DCol, what: str) -> torch.Tensor:
+    """The values of a column that can be elements: integers, dates,
+    short decimals, DOUBLEs, booleans and DICT codes."""
+    if c.kind not in (PLAIN, DICT) or c.values.dim() == 2 \
+            or c.values2 is not None:
+        raise NotImplementedError(
+            f"{what} of a {c.kind} {c.dtype} column on the torch path")
+    return c.values
+
+
+def _pack(values, R: "Groups", keep, pos, counts, ctx) -> Tuple:
+    """([capacity, width] values of each group's kept rows at their
+    positions, width): the width, the largest group, is one host read."""
+    width = _sync_int(ctx, counts.max()) if counts.numel() else 0
+    return AR.group_pack(values, R.slot, pos, keep, R.capacity, width)
+
+
+def _first_pairs(R: "Groups", c: DCol, vmask):
+    """The distinct (group, value) pairs of the rows in ``vmask``: (the
+    lowest row of each pair, in row order; its pair's row count)."""
+    n = c.n_rows
+    if n == 0:
+        none = torch.zeros((0,), dtype=torch.int64, device=vmask.device)
+        return none, none, none.to(torch.bool)
+    cap = n  # no more pairs than rows: the insert cannot overflow
+    owner, pslot, _ = HT.insert([R.slot.to(torch.int64)] + _col_keys(c),
+                                vmask, cap)
+    cnt = A.seg_count(pslot, vmask, cap)
+    used = owner != HT.EMPTY
+    order = torch.sort(torch.where(used, owner.to(torch.int64), n)).indices
+    rows = owner.to(torch.int64)[order]
+    return rows, cnt[order], used[order]
+
+
+def _agg_nested(spec: AggSpec, c: DCol, chunk: Chunk, mask, R: "Groups",
+                ctx: ExecContext) -> DCol:
+    """array_agg, map_agg, histogram, min(x, n) and max(x, n), grouped or
+    global by ``R``.  NULL inputs are left out, as in the JAX package
+    (this layout has no NULL element); a group with none left is NULL, as
+    Trino's are; a NULL map_agg value raises (one host read).  array_agg
+    keeps row order; map_agg keeps the first value of a repeated key
+    (Trino's) and histogram counts each distinct value,
+    both in the order the keys first appear; min(x, n)/max(x, n) take the
+    n least (greatest) values, in that order, strings by string (the JAX
+    package orders a DICT column's codes).  The groups' width is one host
+    read."""
+    f = spec.func
+    c = _scalar(c)
+    vmask = mask & c.valid_or_true()
+    ot = _agg_output_type(spec)
+    if f in ("min_n", "max_n"):
+        # each row's rank in its group in value order: the rows in value
+        # order, then their positions within their groups
+        width = int(spec.param)
+        perm = SORT.argsort_multi([(p, f == "max_n")
+                                   for p in _value_packs(c)])
+        ranked, cnt = AR.group_positions(R.slot[perm], vmask[perm],
+                                         R.capacity)
+        pos = torch.empty_like(ranked)
+        pos[perm] = ranked
+        keep = vmask & (pos >= 0) & (pos < width)
+        vals = AR.group_pack(_elements(c, f), R.slot, pos, keep, R.capacity,
+                             width)
+        return DCol(ot, ARRAY, vals, cnt.clamp(max=width).to(torch.int32),
+                    R.gvalid & (cnt > 0), c.dictionary)
+    if f == "array_agg":
+        pos, counts = AR.group_positions(R.slot, vmask, R.capacity)
+        vals = _pack(_elements(c, f), R, vmask, pos, counts, ctx)
+        return DCol(ot, ARRAY, vals, counts.to(torch.int32),
+                    R.gvalid & (counts > 0), c.dictionary)
+    rows, pair_cnt, used = _first_pairs(R, c, vmask)
+    at = rows.clamp(max=max(c.n_rows - 1, 0))
+    rslot = torch.where(used, R.slot.to(torch.int64)[at], -1)
+    pos, counts = AR.group_positions(rslot, used, R.capacity)
+    sub = Groups(rslot, R.capacity, R.gvalid)
+    keys = _pack(_elements(c, f)[at], sub, used, pos, counts, ctx)
+    if f == "histogram":
+        v2, d2 = AR.group_pack(pair_cnt, rslot, pos, used, R.capacity,
+                               keys.shape[1]), None
+    else:
+        v = _scalar(eval_expr(spec.arg2, chunk))
+        if v.validity is not None and _sync_int(
+                ctx, (vmask & ~v.validity).any()):
+            raise NotImplementedError("map_agg of a NULL value (a MAP "
+                                      "holds no NULL element here)")
+        v2 = AR.group_pack(_elements(v, f)[at], rslot, pos, used,
+                           R.capacity, keys.shape[1])
+        d2 = v.dictionary
+    return DCol(ot, MAP, keys, counts.to(torch.int32),
+                R.gvalid & (counts > 0), c.dictionary, v2, d2)
+
+
+def _at(values: torch.Tensor, row: torch.Tensor,
+        pos: torch.Tensor) -> torch.Tensor:
+    """``values[row[i], pos[i]]`` of a ``[N, W]`` tensor (0 where W is 0)."""
+    if values.shape[1] == 0:
+        return torch.zeros(row.shape, dtype=values.dtype,
+                           device=values.device)
+    return values[row, pos.clamp(0, values.shape[1] - 1)]
+
+
+def _exec_unnest(plan: PhysUnnest, ctx: ExecContext) -> Chunk:
+    """CROSS JOIN UNNEST: each live row repeated once per element of its
+    longest argument (zip: a shorter array's elements are NULL past its
+    end; a NULL array gives no element), a MAP as key and value columns,
+    the 1-based position as the ordinality.  The output is the expanded
+    rows only: one host read of their count."""
+    child = execute(plan.child, ctx)
+    arrs = [eval_expr(e, child) for e in plan.exprs]
+    dev = child.mask.device
+    for a in arrs:
+        if a.kind not in (ARRAY, MAP):
+            raise NotImplementedError(f"UNNEST of a {a.kind} {a.dtype}")
+    eff = [torch.where(a.valid_or_true(), a.lengths.to(torch.int64), 0)
+           for a in arrs]
+    reps = torch.where(child.mask, torch.stack(eff).amax(0), 0)
+    total = _sync_int(ctx, reps.sum())
+    row = torch.repeat_interleave(torch.arange(child.n_rows, device=dev),
+                                  reps, output_size=total)
+    pos = torch.arange(total, device=dev) - (torch.cumsum(reps, 0)
+                                             - reps)[row]
+    cols = {nm: c.take(row) for nm, c in child.cols.items()}
+    for a, e, outs in zip(arrs, eff, plan.names):
+        valid = pos < e[row]
+        key = _at(a.values, row, pos)
+        if a.kind == MAP:
+            cols[outs[0]] = _element(a.dtype.key, key, valid, a.dictionary)
+            cols[outs[1]] = _element(a.dtype.value, _at(a.values2, row, pos),
+                                     valid, a.dictionary2)
+        else:
+            cols[outs[0]] = _element(a.dtype.element, key, valid,
+                                     a.dictionary)
+    if plan.ordinality:
+        cols[plan.ordinality] = DCol(T.BIGINT, PLAIN, pos + 1)
+    return Chunk(cols, torch.ones((total,), dtype=torch.bool, device=dev))
 
 
 # ---------------------------------------------------------------- joins
@@ -1629,7 +1825,7 @@ def _join_expand_pairs(plan: PhysHashJoin, probe: Chunk, build: Chunk,
         c = cols[name]
         cols[name] = DCol(c.dtype, c.kind, c.values, c.lengths,
                           c.valid_or_true() & ~null_extend, c.dictionary,
-                          c.values2)
+                          c.values2, c.dictionary2)
     return Chunk(cols, mask)
 
 
@@ -1678,7 +1874,9 @@ def concat_chunks(chunks: List[Chunk]) -> Chunk:
     beside BYTES (a string NULL literal is one), goes to BYTES padded to
     the widest; int64 beside long-decimal words widens to ``[n, 2]``; a
     zoned timestamp's offsets concatenate, 0 (the session zone, UTC) for
-    a part that has none."""
+    a part that has none; ARRAY and MAP columns pad to the widest and
+    recode their string elements over one dictionary (the JAX package
+    cannot concatenate arrays of different widths)."""
     out: Dict[str, DCol] = {}
     for name in chunks[0].cols:
         cols = [ch.cols[name] for ch in chunks]
@@ -1711,6 +1909,13 @@ def concat_chunks(chunks: List[Chunk]) -> Chunk:
                                 for c in cols])
             out[name] = DCol(wide.dtype, PLAIN, torch.cat(vals), None,
                              _concat_validity(cols), values2=v2)
+        elif kinds in ({ARRAY}, {MAP}):
+            rt = cols[0].dtype
+            vals, vals2, d, d2 = nested_layouts(cols, rt)
+            out[name] = DCol(rt, cols[0].kind, torch.cat(vals), torch.cat(
+                [c.lengths.to(torch.int32) for c in cols]),
+                _concat_validity(cols), d,
+                None if vals2 is None else torch.cat(vals2), d2)
         else:
             raise NotImplementedError(
                 f"concat of {sorted(kinds)} columns {name!r}")

@@ -19,10 +19,12 @@ aggregation over one table slice by slice, the table never on the device
 (``exec/streaming.py``; ``last_streamed`` says whether it did).  The JAX
 package's fused single-program path (``run_physical_fused``,
 ``run_fused_fragments``) and its out-of-memory retry ladder are not
-ported.  Nor is
-``fold_row_columns``: the port refuses ROW columns past the scan, so a
-dotted alias such as ``"a.b"`` comes back as one plain column, as Trino
-returns it (the JAX package folds any dotted alias into a ROW).
+ported.  ROW values: the planner shreds a ROW-typed output into one
+column per field and names the outputs it shredded (``row_outputs``);
+``materialize`` folds those, and only those, back into one ROW column,
+so a dotted alias such as ``"a.b"`` comes back as one plain column, as
+Trino returns it (the JAX package's ``fold_row_columns`` folds any
+dotted alias into a ROW).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from ..data import types as T
-from ..data.column import BYTES, Column, bytes_column
+from ..data.column import BYTES, Column, bytes_column, row_column
 from ..data.table import Table
 from ..tpch.schema import SCHEMAS
 from ..utils.metrics import REGISTRY
@@ -83,6 +85,8 @@ class LocalRunner:
         self.last_host_syncs = 0  # device→host reads of the last query
         self.last_spill_partitions = 0  # partitions the last query ran
         self.last_streamed = False  # run_sql_streaming streamed the last
+        # the planned statement's shredded ROW outputs: base → fields
+        self.last_row_outputs: dict = {}
         # cross-cutting services (reference: Guice-injected AccessControl /
         # WarningCollector / @Managed metrics)
         self.access_control = access_control or AccessControl()
@@ -110,9 +114,12 @@ class LocalRunner:
         from ..sql.planner.rules import optimize
         ds = self.datasource
         self.last_warnings = WarningCollector()
-        plan = Planner(ds.sf, extra_tables=ds.extra_schemas(),
-                       extra_stats=ds.extra_stats(),
-                       warnings=self.last_warnings).plan(parse(sql))
+        planner = Planner(ds.sf, extra_tables=ds.extra_schemas(),
+                          extra_stats=ds.extra_stats(),
+                          warnings=self.last_warnings,
+                          extra_rows=ds.row_fields)
+        plan = planner.plan(parse(sql))
+        self.last_row_outputs = planner.row_outputs
         self.last_applied_rules = []  # EXPLAIN-able optimizer trace
         plan = prune(optimize(plan, trace=self.last_applied_rules), None)
         self._check_access(plan)
@@ -127,9 +134,11 @@ class LocalRunner:
         self.last_spill_partitions = ctx.spill_partitions
         self.last_streamed = streamed
 
-    def run_physical(self, plan: PhysOp) -> Table:
+    def run_physical(self, plan: PhysOp, rows=None) -> Table:
+        """Run ``plan``; ``rows`` ({base: field columns}) names the
+        shredded ROW outputs to fold."""
         ctx = self._context()
-        table = materialize(execute(plan, ctx), ctx)
+        table = materialize(execute(plan, ctx), ctx, rows)
         self._finish(ctx, streamed=False)
         return table
 
@@ -140,7 +149,8 @@ class LocalRunner:
         ddl = self._maybe_ddl(sql)
         if ddl is not None:
             return ddl
-        return self.run_physical(self._cached_plan(sql))
+        plan = self._cached_plan(sql)
+        return self.run_physical(plan, self.last_row_outputs)
 
     def run_sql_streaming(self, sql: str,
                           slice_rows: int = 1 << 22) -> Table:
@@ -170,10 +180,11 @@ class LocalRunner:
         hit = self._plan_cache.get(sql)
         if hit is None:
             hit = self._plan_cache[sql] = (self.plan_sql(sql),
-                                           self.last_warnings)
+                                           self.last_warnings,
+                                           self.last_row_outputs)
         # a cached plan reports its own warnings, not the last planned
         # statement's (the JAX package keeps the last planned ones)
-        plan, self.last_warnings = hit
+        plan, self.last_warnings, self.last_row_outputs = hit
         return plan
 
     # -- DDL, DML and SHOW (the TableWriter/TableFinish analogue) ------
@@ -381,11 +392,23 @@ def _split_top_level(text: str) -> list:
     return [p for p in parts if p.strip()]
 
 
-def materialize(chunk: Chunk, ctx: ExecContext) -> Table:
+def materialize(chunk: Chunk, ctx: ExecContext, rows=None) -> Table:
     """Masked-in rows of a device chunk → host Table (one device→host read
-    for the mask, then one per column tensor)."""
+    for the mask, then one per column tensor); the field columns of each
+    shredded ROW output in ``rows`` ({base: field columns}, the planner's
+    ``row_outputs``) fold into one ROW column ``base`` where its first
+    field stood."""
     sel = np.nonzero(chunk.mask.cpu().numpy())[0]
     ctx.host_syncs += 1 + sum(
         1 + (c.validity is not None) + (c.lengths is not None)
-        for c in chunk.cols.values())
-    return Table({name: to_host(col, sel) for name, col in chunk.cols.items()})
+        + (c.values2 is not None) for c in chunk.cols.values())
+    cols = {name: to_host(col, sel) for name, col in chunk.cols.items()}
+    for base, fields in (rows or {}).items():
+        if not all(f in cols for f in fields):
+            continue
+        row = row_column([(f[len(base) + 1:], cols[f]) for f in fields])
+        cols = {(base if n == fields[0] else n): (row if n == fields[0]
+                                                  else c)
+                for n, c in cols.items() if n == fields[0]
+                or n not in fields}
+    return Table(cols)

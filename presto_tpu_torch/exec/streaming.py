@@ -10,7 +10,8 @@ device, merged eagerly every 8 slices.  The device holds O(slice + groups),
 never the table.
 
 A streamable plan is an aggregation over Filter/Project over one scan of
-a connector table, every aggregate with a mergeable state and none
+a connector table, every aggregate with a mergeable state (not
+approx_percentile, min_by/max_by or a nested-value aggregate) and none
 DISTINCT, grouped or global (one group, present over no rows); a HAVING filter, projections, a sort and a limit above it run
 on the merged result.  Any other plan (a join below the aggregation, a
 memory table) gets None and the caller runs it whole (``run_sql``): a

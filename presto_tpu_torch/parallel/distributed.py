@@ -22,9 +22,11 @@ their value merged by AND and OR, each beside its count.
 
 The mesh, the exchanges and the multi-device runner are slice 5 and not
 ported: this module holds the states only.  ``approx_percentile``,
-``min_by`` and ``max_by`` have no state here (nor in the JAX package's
-streaming), so they raise ``NotImplementedError`` naming them and a
-streamed plan holding them runs whole; so does a DISTINCT aggregate,
+``min_by``, ``max_by`` and the nested-value aggregates (array_agg,
+map_agg, histogram, min(x, n)/max(x, n)) have no state here (nor in the
+JAX package's streaming), so they raise ``NotImplementedError`` naming
+them and a streamed plan holding them runs whole; so does a DISTINCT
+aggregate,
 whose state does not merge.
 """
 

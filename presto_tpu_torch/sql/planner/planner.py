@@ -184,6 +184,8 @@ class Rel:
     # fraction of probe rows (the CBO's join-selectivity estimate,
     # reference: ``cost/JoinStatsRule``)
     base: float = 0.0
+    # the outputs a SELECT shredded from a ROW value: base → field columns
+    rows: Dict[str, Tuple[str, ...]] = dfield(default_factory=dict)
 
 
 # ---------------------------------------------------------------- planner
@@ -204,8 +206,15 @@ def _mod_type(a: T.DataType, b: T.DataType) -> T.DataType:
 
 class Planner:
     def __init__(self, scale_factor: float, extra_tables=None,
-                 extra_stats=None, warnings=None):
+                 extra_stats=None, warnings=None, extra_rows=None):
         self.sf = scale_factor
+        # memory-table columns that hold a shredded ROW's fields: name →
+        # {dotted field column}; and the statement's outputs shredded from
+        # a ROW (``row_outputs``, base → field columns), which the runner
+        # folds back into ROW columns
+        self.extra_rows: Dict[str, Set[str]] = extra_rows or {}
+        self._row_phys: Set[str] = set()
+        self.row_outputs: Dict[str, Tuple[str, ...]] = {}
         self.warnings = warnings      # WarningCollector | None
         self.counter = 0
         self.used_prefixes: Set[str] = set()
@@ -258,6 +267,7 @@ class Planner:
 
     def plan(self, query) -> P.PhysOp:
         rel = self.plan_query(query, outer=None)
+        self.row_outputs = rel.rows
         return rel.plan
 
     @staticmethod
@@ -607,6 +617,8 @@ class Planner:
             cols.add(phys)
             self._defined_phys.add(phys)
             self._base_prov[phys] = None  # not a tpch base column
+            if cname in self.extra_rows.get(name, ()):
+                self._row_phys.add(phys)
             scope.add(alias, cname, phys, ctype)
         plan = P.PhysScan(name, tuple(c for c, _ in cols_types),
                           alias_prefix=prefix)
@@ -1298,6 +1310,7 @@ class Planner:
 
         # 6. select outputs
         items: List[Tuple[str, ir.Expr]] = []
+        marks: Dict[str, Tuple[str, ...]] = {}
         for i, it in enumerate(q.items):
             if isinstance(it.expr, ast.Star):
                 # expand distinct physical outputs
@@ -1306,6 +1319,9 @@ class Planner:
                     if phys not in seen:
                         seen.add(phys)
                         items.append((phys, ir.ColumnRef(phys, dtype)))
+                        if phys in self._row_phys:  # a stored ROW's field
+                            base = phys.partition(".")[0]
+                            marks[base] = marks.get(base, ()) + (phys,)
                 continue
             if has_aggs:
                 e = self.resolve_post_agg(it.expr, post_scope)
@@ -1318,6 +1334,7 @@ class Planner:
                 # (see ``data/column.py`` ROW kind)
                 for fld, fe in e.fields:
                     items.append((f"{name}.{fld}", fe))
+                marks[name] = tuple(f"{name}.{fld}" for fld, _ in e.fields)
                 continue
             # duplicate output names get positional suffixes (columns are
             # dict-keyed; both copies are still produced)
@@ -1340,7 +1357,7 @@ class Planner:
             out_scope.add(None, name, name, e.dtype)
         out = Rel(proj, out_scope, {n for n, _ in items},
                   cur.unique_keys if not q.distinct else
-                  [frozenset(n for n, _ in items)], cur.est)
+                  [frozenset(n for n, _ in items)], cur.est, rows=marks)
 
         # 7. distinct
         if q.distinct:
@@ -1824,6 +1841,12 @@ class Planner:
         if isinstance(node, ast.TypedNull):
             inner = self.resolve(node.of, self._cur_scope, self._cur_outer)
             return ir.Literal(None, inner.dtype)
+        if isinstance(node, ast.ArrayLit):
+            # ARRAY[...] over post-aggregation values, typed as
+            # ``_resolve`` types it
+            return self._resolve(ast.ArrayLit(tuple(
+                _PreResolved(self.resolve_post_agg(a, post_scope))
+                for a in node.items)), self._cur_scope, self._cur_outer)
         if isinstance(node, ast.FuncCall) and node.name == "grouping":
             # grouping(e1..ek): bitmask with bit i set when e_i is NOT in
             # the current row's grouping set (reference:

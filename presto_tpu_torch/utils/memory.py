@@ -17,8 +17,9 @@ from typing import Callable, Dict, Optional, Tuple
 def col_bytes(col) -> int:
     """Device bytes of one DCol (torch tensors)."""
     n = col.values.numel() * col.values.element_size()
-    if col.lengths is not None:
-        n += col.lengths.numel() * col.lengths.element_size()
+    for t in (col.lengths, col.values2):  # BYTES/ARRAY/MAP; MAP, zoned
+        if t is not None:
+            n += t.numel() * t.element_size()
     if col.validity is not None:
         n += col.validity.numel()
     return n

@@ -12,7 +12,8 @@ Trino's documented semantics, on the CPU at SF0.01.
 - the JAX package's wrong answers that the port does not copy, each held
   to Trino's documented result, with the JAX package's value asserted
   beside it;
-- ``split`` still raising ``NotImplementedError`` (it returns an ARRAY).
+- ``split`` with a limit or an empty delimiter still raising
+  ``NotImplementedError`` (the two-argument form returns an ARRAY).
 """
 
 import functools
@@ -71,9 +72,17 @@ def test_split_part_of_a_column():
 
 
 def test_split_still_raises():
-    with pytest.raises(NotImplementedError, match="split"):
-        port().run_sql("select split(o_orderpriority, '-') a from orders "
-                       "where o_orderkey = 1")
+    """``split`` returns an ARRAY now (nested values,
+    ``tests/test_torch_nested.py``); its forms the JAX package lacks, a
+    limit and an empty delimiter, still raise."""
+    got = port().run_sql("select o_orderpriority p, split(o_orderpriority, "
+                         "'-') a from orders where o_orderkey = 1"
+                         ).to_pydict()
+    assert got["a"] == [got["p"][0].split("-")]
+    for sql in ("select split(o_orderpriority, '-', 2) a from orders",
+                "select split(o_orderpriority, '') a from orders"):
+        with pytest.raises(NotImplementedError, match="split"):
+            port().run_sql(sql)
 
 
 # ------------------------------------------------------ against the JAX

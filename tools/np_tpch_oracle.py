@@ -1401,3 +1401,134 @@ def aggregates_patterns(t: Tables) -> dict:
                              "m": [int(mno.max())],
                              "p": [exact_sum(p[inside])]}
     return out
+
+
+# the ``nested`` phase: ARRAY, MAP and ROW values, UNNEST and the
+# nested-value aggregates (``chip_smoke.nested_phase``)
+SPLIT_NAME = "split(p_name, ' ')"
+NESTED = {
+    # 200,000 names into 1,000,000 words at SF1
+    "split_unnest": "select w, count(*) c from part cross join unnest("
+                    + SPLIT_NAME + ") as t(w) group by w "
+                    "order by c desc, w limit 20",
+    "unnest_ordinality": "select pos, count(*) c, count(distinct w) d "
+                         "from part cross join unnest(" + SPLIT_NAME
+                         + ") with ordinality as t(w, pos) group by pos "
+                         "order by pos",
+    # global BIGINT sums: masked_sum
+    "array_sums": "select sum(case when contains(" + SPLIT_NAME
+                  + ", 'green') then 1 else 0 end) g, "
+                  "sum(cardinality(array_distinct(" + SPLIT_NAME + "))) d, "
+                  "sum(array_position(" + SPLIT_NAME + ", 'red')) r "
+                  "from part",
+    # strings compared and sorted by string across two dictionaries
+    "set_ops": "select array_join(array_sort(array_intersect(" + SPLIT_NAME
+               + ", array['green', 'red', 'blue'])), ',') s, count(*) c "
+               "from part group by 1 order by 1",
+    "array_agg_orders": "select o_custkey, "
+                        "cardinality(array_agg(o_orderkey)) n, "
+                        "element_at(array_sort(array_agg(o_orderkey)), 1) f,"
+                        " array_max(array_agg(o_totalprice)) m from orders "
+                        "group by o_custkey order by n desc, o_custkey "
+                        "limit 20",
+    # lineitem ⋈ orders: sorted_probe
+    "histogram_join": "select o_orderpriority, histogram(l_shipmode) h "
+                      "from lineitem, orders where l_orderkey = o_orderkey "
+                      "group by o_orderpriority order by o_orderpriority",
+    "top_n": "select l_returnflag, max(l_extendedprice, 3) p, "
+             "min(l_shipdate, 2) d, max(l_shipmode, 2) m from lineitem "
+             "group by l_returnflag order by l_returnflag",
+    "map_agg_region": "select r_name, element_at(map_agg(n_name, "
+                      "n_nationkey), 'PERU') p, max(n_name, 2) m "
+                      "from nation, region where n_regionkey = r_regionkey "
+                      "group by r_name order by r_name",
+    "row_fold": "select cast(row(o_orderkey, o_orderpriority) as "
+                "row(k bigint, p varchar)) r from orders "
+                "where o_orderkey <= 1000 order by o_orderkey",
+}
+
+
+def _top(rows, key, n=None) -> dict:
+    """Column lists of ``rows`` (tuples) sorted by ``key``, the first
+    ``n``."""
+    rows = sorted(rows, key=key)[:n]
+    return [list(c) for c in zip(*rows)] if rows else []
+
+
+def nested(t: Tables) -> dict:
+    """The ``NESTED`` statements' results, by Python over the part names'
+    words and numpy over the orders and lineitem columns."""
+    li, od = "lineitem", "orders"
+    out = {}
+    words = [str(s).split(" ") for s in t.s("part", "p_name")]
+    from collections import Counter
+    cnt = Counter(w for ws in words for w in ws)
+    w, c = _top(cnt.items(), lambda x: (-x[1], x[0]), 20)
+    out["split_unnest"] = {"w": w, "c": c}
+    deepest = max(len(ws) for ws in words)
+    out["unnest_ordinality"] = {
+        "pos": list(range(1, deepest + 1)),
+        "c": [sum(len(ws) > i for ws in words) for i in range(deepest)],
+        "d": [len({ws[i] for ws in words if len(ws) > i})
+              for i in range(deepest)]}
+    out["array_sums"] = {
+        "g": [sum("green" in ws for ws in words)],
+        "d": [sum(len(set(ws)) for ws in words)],
+        "r": [sum(ws.index("red") + 1 for ws in words if "red" in ws)]}
+    pick = ("green", "red", "blue")
+    sets = Counter(",".join(sorted({x for x in ws if x in pick}))
+                   for ws in words)
+    s, c = _top(sets.items(), lambda x: x[0])
+    out["set_ops"] = {"s": s, "c": c}
+    t.preload(od, ("o_orderkey", "o_custkey", "o_totalprice",
+                   "o_orderpriority"))
+    okey, cust = t.v(od, "o_orderkey"), t.v(od, "o_custkey")
+    price = t.v(od, "o_totalprice")
+    order = np.lexsort((okey, cust))
+    cs = cust[order]
+    starts = np.flatnonzero(np.r_[True, cs[1:] != cs[:-1]])
+    n = np.diff(np.r_[starts, cs.shape[0]])
+    first = okey[order][starts]
+    top = np.maximum.reduceat(price[order], starts)
+    rows = zip(cs[starts].tolist(), n.tolist(), first.tolist(), top.tolist())
+    k, n, f, m = _top(rows, lambda x: (-x[1], x[0]), 20)
+    out["array_agg_orders"] = {"o_custkey": k, "n": n, "f": f, "m": m}
+    t.preload(li, ("l_orderkey", "l_shipmode", "l_returnflag",
+                   "l_extendedprice", "l_shipdate"))
+    row, found = lookup(okey, t.v(li, "l_orderkey"))
+    prio = _strings(t.col(od, "o_orderpriority"))
+    mode = _strings(t.col(li, "l_shipmode"))
+    lprio = prio[row[found]]
+    pairs = Counter(zip(lprio.tolist(), mode[found].tolist()))
+    prios = sorted(set(lprio.tolist()))
+    out["histogram_join"] = {
+        "o_orderpriority": prios,
+        "h": [{md: c for (p, md), c in pairs.items() if p == pr}
+              for pr in prios]}
+    flag = _strings(t.col(li, "l_returnflag"))
+    ep, ship = t.v(li, "l_extendedprice"), t.v(li, "l_shipdate")
+    flags = sorted(set(flag.tolist()))
+    out["top_n"] = {
+        "l_returnflag": flags,
+        "p": [np.sort(ep[flag == x])[::-1][:3].tolist() for x in flags],
+        "d": [np.sort(ship[flag == x])[:2].tolist() for x in flags],
+        "m": [sorted(mode[flag == x].tolist(), reverse=True)[:2]
+              for x in flags]}
+    nname = t.s("nation", "n_name").tolist()
+    nkey = t.v("nation", "n_nationkey").tolist()
+    nreg = t.v("nation", "n_regionkey").tolist()
+    rname = dict(zip(t.v("region", "r_regionkey").tolist(),
+                     t.s("region", "r_name").tolist()))
+    regions = sorted({rname[r] for r in nreg})
+    members = {rg: [(nm, k) for nm, k, r in zip(nname, nkey, nreg)
+                    if rname[r] == rg] for rg in regions}
+    out["map_agg_region"] = {
+        "r_name": regions,
+        "p": [dict(members[rg]).get("PERU") for rg in regions],
+        "m": [sorted((nm for nm, _ in members[rg]), reverse=True)[:2]
+              for rg in regions]}
+    low = np.flatnonzero(okey <= 1000)
+    low = low[np.argsort(okey[low], kind="stable")]
+    out["row_fold"] = {"r": [{"k": int(okey[i]), "p": str(prio[i])}
+                             for i in low]}
+    return out

@@ -3,6 +3,7 @@
 
     python3 tools/phase_probe.py strings_dates
     python3 tools/phase_probe.py aggregates_patterns
+    python3 tools/phase_probe.py nested
 
 Builds the kernels, uploads the SF1 columns the phase reads (timed
 apart, so that no statement's first run carries the upload), runs the
@@ -37,6 +38,14 @@ PHASES = {
                      "l_shipdate", "l_receiptdate"),
         "orders": ("o_orderkey", "o_custkey", "o_orderdate",
                    "o_orderpriority", "o_totalprice")}),
+    "nested": ("nested_phase", {
+        "part": ("p_name",),
+        "lineitem": ("l_orderkey", "l_shipmode", "l_returnflag",
+                     "l_extendedprice", "l_shipdate"),
+        "orders": ("o_orderkey", "o_custkey", "o_totalprice",
+                   "o_orderpriority"),
+        "nation": ("n_name", "n_nationkey", "n_regionkey"),
+        "region": ("r_regionkey", "r_name")}),
 }
 
 
