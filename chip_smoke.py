@@ -18,6 +18,19 @@ non-zero without printing a result):
    counts are reset just before and read just after, each kernel must
    have launched, and ``sorted_probe`` must have launched in every query
    of ``PROBED`` (each has a join on one BIGINT key);
+4b. distributed: a world of one rank over NCCL (a rank process of
+   ``python -m presto_tpu_torch.parallel.worker`` started and guarded by
+   ``parallel/multihost.launch_world``) runs phase 4's 23 requests
+   through ``DistributedRunner(scale_factor=1.0,
+   broadcast_row_limit=300_000)`` (the orders- and lineitem-sized builds
+   PARTITIONED): one warm-up and 3 timed runs each, every run equal to
+   phase 4's numpy oracle, one ``distributed_statement`` line each (warm
+   median, host syncs, collectives, bytes exchanged); with one rank every
+   exchange is the identity, but every collective, dtype and device
+   placement is NCCL's on the card.  The rank resets the launch counts
+   when it starts and reads them at its end; ``masked_sum`` must launch in
+   the BIGINT sum's partial and ``sorted_probe`` in every query of
+   ``PROBED``;
 5. measure: each kernel, exactly equal to its plain version, at the
    shapes the main path gives it (``sorted_probe`` at Q14's launch, at
    the largest launch of Q3 and at the largest launch of Q4 and Q21 into
@@ -148,7 +161,7 @@ non-zero without printing a result):
    around their runs;
 10. a ``kernels`` JSON line (launches by path: tpch, scalars,
     strings_dates, aggregates_patterns, aggregates_streamed, nested,
-    tpcds, server, tiers, streamed), then the card line,
+    distributed, tpcds, server, tiers, streamed), then the card line,
     then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -701,6 +714,64 @@ def nested_phase(torch, CK, NO, runner, card: str, tables=None) -> dict:
 
 
 # ---------------------------------------------------------------- tpcds
+
+DIST_BROADCAST_ROWS = 300_000  # orders- and lineitem-sized builds partition
+DIST_TIMED_RUNS = 3
+DIST_DEADLINE_S = 300.0        # the world is killed past it
+
+
+def distributed_phase(torch, requests: dict, want: dict, card: str) -> dict:
+    """Phase 4b: a world of one rank over NCCL (``multihost.launch_world``:
+    one rank process of ``presto_tpu_torch.parallel.worker`` on this card,
+    killed past ``DIST_DEADLINE_S``) runs phase 4's requests through
+    ``DistributedRunner(scale_factor=1.0, broadcast_row_limit=300_000)``:
+    one warm-up and 3 timed runs each, every run equal to phase 4's numpy
+    oracle; one ``distributed_statement`` line each (warm median, host
+    syncs, collectives, bytes exchanged, the joins' build rows, launches
+    per run).  The rank resets the kernels' launch counts when it starts
+    and reads them at the end: ``masked_sum`` must launch in the BIGINT
+    sum's partial and ``sorted_probe`` in every query of ``PROBED``."""
+    from presto_tpu_torch.parallel.multihost import launch_world
+    t_phase = time.perf_counter()
+    runs = 1 + DIST_TIMED_RUNS
+    spec = {"sf": SF, "runners": {"default": {
+        "broadcast_row_limit": DIST_BROADCAST_ROWS}},
+        "jobs": [{"name": n, "sql": q, "runs": runs}
+                 for n, q in requests.items()]}
+    data = launch_world(1, spec, DIST_DEADLINE_S, device="cuda:0")
+    if data["backend"] != "nccl" or not data["device"].startswith("cuda"):
+        raise AssertionError(f"the distributed phase ran on {data['device']}"
+                             f" over {data['backend']}")
+    for rec in data["results"]:
+        name = rec["name"]
+        if rec["values"] != want[name] or not rec["runs_equal"]:
+            raise AssertionError(f"distributed {name}: {rec['values']} != "
+                                 f"oracle {want[name]}")
+        per_run = {k: v // runs for k, v in rec["launches"].items()}
+        say("distributed_statement", name=name, sf=SF, world=data["world"],
+            backend=data["backend"],
+            warm_ms_median=statistics.median(rec["warm_ms"]),
+            warm_ms=rec["warm_ms"], first_run_s=round(rec["first_run_s"], 3),
+            host_syncs=rec["host_syncs"], collectives=rec["collectives"],
+            bytes_exchanged=rec["bytes_exchanged"],
+            build_rows=rec["build_rows"], launches_per_run=per_run,
+            rows=rec["rows"], equals_oracle=True, card=card)
+        if name == "bigint_sum" and per_run["masked_sum"] <= 0:
+            raise AssertionError("the distributed BIGINT sum launched no "
+                                 "masked_sum")
+        if name in PROBED and per_run["sorted_probe"] <= 0:
+            raise AssertionError(f"distributed {name} launched no "
+                                 "sorted_probe")
+    launches = data["launches"]
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"the distributed phase launched no {k}")
+    say("distributed_done", statements=len(data["results"]),
+        launches=launches, world=data["world"], backend=data["backend"],
+        rank_seconds=round(data["seconds"], 3),
+        seconds=round(time.perf_counter() - t_phase, 3))
+    return {"launches": launches}
+
 
 def tpcds_load(conn, runner) -> dict:
     """Every column of every TPC-DS table generated on the host and
@@ -1626,6 +1697,7 @@ def main() -> int:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} never launched on the main path")
+    distributed = distributed_phase(torch, requests, want, card)
 
     (okey, mask), probe_inputs = path_inputs(torch, runner)
     # the largest launches of the join queries, as the main path forms them
@@ -1679,6 +1751,7 @@ def main() -> int:
                    "aggregates_streamed":
                        aggregates["streamed_launches"][name],
                    "nested": nested["launches"][name],
+                   "distributed": distributed["launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

@@ -208,6 +208,13 @@ class DataSource:
                 self._dicts[key] = dc.dictionary
         return dc
 
+    def _split(self, table: str):
+        """The split of ``table`` this data source holds: the whole table
+        (a rank's data source holds its row range,
+        ``parallel/distributed.ShardSource``)."""
+        conn, tbl = self._resolve(table)
+        return conn.split_manager.splits(tbl, 1)[0]
+
     def _read(self, table: str, columns, first: int, count: int) -> dict:
         """One ingest slice: the page source's host columns for ``count``
         split units from ``first`` (it may return more than ``columns``)."""
@@ -216,14 +223,13 @@ class DataSource:
         return conn.page_source.read(tbl, list(columns), first, count)
 
     def _ingest(self, table: str, columns) -> Dict[str, DCol]:
-        """The whole table's ``columns`` (and any other the page source
+        """The split's (``_split``) ``columns`` (and any other the page source
         returns with them) on the device, read and uploaded in slices of
         ``ingest_slice_rows`` split units (one read when it is None): the
         host holds one slice at a time.  The slices of a DICT column share
         its interned dictionary, so they stay DICT end to end."""
         from .physical import concat_chunks
-        conn, tbl = self._resolve(table)
-        split = conn.split_manager.splits(tbl, 1)[0]
+        split = self._split(table)
         first, count = split.first_row, split.row_count
         step = self.ingest_slice_rows or count
         parts = []  # an empty table is one read of no rows

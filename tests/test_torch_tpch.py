@@ -163,6 +163,15 @@ try:
 finally:
     srv.close()
 assert rows == [[5]], rows
+import os, tempfile
+import torch.distributed as dist
+from presto_tpu_torch.parallel.distributed import DistributedRunner
+from presto_tpu_torch.parallel.multihost import init_multihost
+init_multihost(0, 1, "file://" + os.path.join(tempfile.mkdtemp(), "store"),
+               timeout_s=120, device="cpu")
+assert DistributedRunner(0.01, device="cpu").run_sql(
+    QUERIES[3]).row_count == 10
+dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "presto_tpu"
              or m.startswith("presto_tpu."))
@@ -175,10 +184,11 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Running Q6 and TPC-DS q96 through the port, and a statement through
-    its HTTP server, loads no jax and no presto_tpu module, and no port
-    source (nor its chip scripts and their
-    numpy and SQLite oracles) imports them."""
+    """Running Q6 and TPC-DS q96 through the port, a statement through
+    its HTTP server and Q3 through its distributed runner (a world of one
+    rank, gloo, the CPU), loads no jax and no presto_tpu module, and no
+    port source (the rank worker module among them, nor its chip scripts
+    and their numpy and SQLite oracles) imports them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT,
                           env=env, capture_output=True, text=True,
