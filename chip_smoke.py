@@ -31,6 +31,19 @@ non-zero without printing a result):
    when it starts and reads them at its end; ``masked_sum`` must launch in
    the BIGINT sum's partial and ``sorted_probe`` in every query of
    ``PROBED``;
+4c. cluster: ``ClusterSupervisor(scale_factor=1.0, n_workers=1,
+   min_workers=1, device="cuda:0", broadcast_row_limit=300_000)``
+   supervises phase 4's ``q3``, ``q5`` and BIGINT sum: each statement is
+   one attempt, a world of one NCCL rank started by ``launch_world``,
+   whose rank 0 hands back its host ``Table``, equal to phase 4's
+   oracle; one ``cluster_statement`` line each (the attempt's wall ms,
+   the world's start and ingest included, rows, the rank's launches).
+   The counters must read one attempt per statement and no restart, and
+   the rank's launch counts (reset when it starts) must show
+   ``sorted_probe`` in Q3 and ``masked_sum`` in the BIGINT sum.  One card
+   holds only a world of one rank (NCCL puts no two ranks of a
+   communicator on one card), so a death and its replay on the survivors
+   are checked on the CPU only (``tests/test_torch_cluster.py``);
 5. measure: each kernel, exactly equal to its plain version, at the
    shapes the main path gives it (``sorted_probe`` at Q14's launch, at
    the largest launch of Q3 and at the largest launch of Q4 and Q21 into
@@ -161,7 +174,8 @@ non-zero without printing a result):
    around their runs;
 10. a ``kernels`` JSON line (launches by path: tpch, scalars,
     strings_dates, aggregates_patterns, aggregates_streamed, nested,
-    distributed, tpcds, server, tiers, streamed), then the card line,
+    distributed, cluster, tpcds, server, tiers, streamed), then the card
+    line,
     then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -770,6 +784,67 @@ def distributed_phase(torch, requests: dict, want: dict, card: str) -> dict:
         launches=launches, world=data["world"], backend=data["backend"],
         rank_seconds=round(data["seconds"], 3),
         seconds=round(time.perf_counter() - t_phase, 3))
+    return {"launches": launches}
+
+
+CLUSTER_STATEMENTS = ("q3", "q5", "bigint_sum")
+
+
+def cluster_phase(torch, requests: dict, want: dict, card: str) -> dict:
+    """Phase 4c: ``ClusterSupervisor`` over worlds of one NCCL rank on
+    this card supervises ``CLUSTER_STATEMENTS``, one attempt each (the
+    module docstring).  A death and its replay need a second card, so
+    they are checked on the CPU only; here every attempt must succeed the
+    first time.  Returns the ranks' launches, summed."""
+    from presto_tpu_torch.parallel.cluster import ClusterSupervisor
+    t_phase = time.perf_counter()
+    sup = ClusterSupervisor(scale_factor=SF, n_workers=1, min_workers=1,
+                            device="cuda:0",
+                            attempt_deadline_s=DIST_DEADLINE_S,
+                            broadcast_row_limit=DIST_BROADCAST_ROWS)
+    launches: dict = {}
+    try:
+        for name in CLUSTER_STATEMENTS:
+            t0 = time.perf_counter()
+            table = sup.run_sql(requests[name])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            check_statement("cluster", name, table, want)
+            world = sup.last_world
+            if world["backend"] != "nccl" or \
+                    not world["device"].startswith("cuda"):
+                raise AssertionError(f"cluster {name} ran on "
+                                     f"{world['device']} over "
+                                     f"{world['backend']}")
+            rec = world["results"][-1]
+            for k, v in world["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            say("cluster_statement", name=name, sf=SF, wall_ms=wall_ms,
+                rows=table.row_count, world=world["world"],
+                backend=world["backend"], launches=world["launches"],
+                rank_seconds=round(world["seconds"], 3),
+                first_run_s=round(rec["first_run_s"], 3),
+                host_syncs=rec["host_syncs"],
+                collectives=rec["collectives"], attempts=sup.attempts,
+                restarts=sup.restarts, equals_oracle=True, card=card)
+            if name == "bigint_sum" and world["launches"]["masked_sum"] <= 0:
+                raise AssertionError("the supervised BIGINT sum launched "
+                                     "no masked_sum")
+            if name in PROBED and world["launches"]["sorted_probe"] <= 0:
+                raise AssertionError(f"supervised {name} launched no "
+                                     "sorted_probe")
+    finally:
+        sup.shutdown()
+    if sup.attempts != len(CLUSTER_STATEMENTS) or sup.restarts != 0:
+        raise AssertionError(f"cluster: {sup.attempts} attempts and "
+                             f"{sup.restarts} restarts for "
+                             f"{len(CLUSTER_STATEMENTS)} statements")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"the cluster phase launched no {k}")
+    say("cluster_done", statements=len(CLUSTER_STATEMENTS),
+        attempts=sup.attempts, restarts=sup.restarts,
+        attempt_worlds=sup.attempt_worlds, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 3), card=card)
     return {"launches": launches}
 
 
@@ -1698,6 +1773,7 @@ def main() -> int:
         if v <= 0:
             raise AssertionError(f"{k} never launched on the main path")
     distributed = distributed_phase(torch, requests, want, card)
+    cluster = cluster_phase(torch, requests, want, card)
 
     (okey, mask), probe_inputs = path_inputs(torch, runner)
     # the largest launches of the join queries, as the main path forms them
@@ -1752,6 +1828,7 @@ def main() -> int:
                        aggregates["streamed_launches"][name],
                    "nested": nested["launches"][name],
                    "distributed": distributed["launches"][name],
+                   "cluster": cluster["launches"][name],
                    "tpcds": tpcds["launches"][name],
                    "server": server["launches"][name],
                    "tiers": tiers["launches"]["tiers"][name],

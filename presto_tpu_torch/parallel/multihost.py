@@ -22,12 +22,14 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -68,8 +70,14 @@ def free_port() -> int:
 
 
 class WorldFailed(RuntimeError):
-    """A rank of a world exited non-zero, or the world outlived its
-    deadline; the message holds each rank's last output."""
+    """A rank of a world exited non-zero, the world outlived its
+    deadline, or its watch stopped it; the message holds each rank's
+    last output, and ``rank`` is the rank that exited first (None when
+    no rank exited)."""
+
+    def __init__(self, message: str, rank: Optional[int] = None):
+        super().__init__(message)
+        self.rank = rank
 
 
 def _tail(path: str) -> str:
@@ -80,15 +88,20 @@ def _tail(path: str) -> str:
 
 
 def launch_world(world: int, spec: dict, deadline_s: float, device=None,
-                 timeout_s: Optional[float] = None) -> dict:
+                 timeout_s: Optional[float] = None,
+                 watch: Optional[Callable[[], Optional[str]]] = None) -> dict:
     """Run the worker's job list ``spec`` (see ``parallel/worker.py``) on
     ``world`` rank processes meeting at a fresh localhost port, each on
     ``device`` (``"cpu"``, or by default its card ``cuda:LOCAL_RANK``),
-    and return rank 0's results.  The process group's timeout is
+    and return rank 0's results; with ``spec["tables"]`` they also hold
+    ``"tables"``, rank 0's host ``Table`` (or the error it caught) of
+    each statement job by name.  The process group's timeout is
     ``timeout_s`` (a little under the deadline by default).  When any
-    rank exits non-zero, or ``deadline_s`` passes, every rank still
-    running is killed and ``WorldFailed`` raised with each rank's last
-    output."""
+    rank exits non-zero, ``deadline_s`` passes, or ``watch`` (polled
+    while the world runs) returns a reason, every rank still running is
+    killed and ``WorldFailed`` raised with each rank's last output.  A
+    rank's exit is timed by a thread waiting on it, so the rank blamed
+    is the one that exited first, not a peer that its exit broke."""
     timeout_s = timeout_s or max(deadline_s - 5.0, 1.0)
     coordinator = f"tcp://127.0.0.1:{free_port()}"
     env = dict(os.environ)
@@ -114,19 +127,28 @@ def launch_world(world: int, spec: dict, deadline_s: float, device=None,
                          "--world", str(world), "--coordinator", coordinator,
                          *args], cwd=REPO, env=dict(env, LOCAL_RANK=str(r)),
                         stdout=log, stderr=subprocess.STDOUT))
+            exits: list = []  # ranks in the order they exited
+            for r, p in enumerate(procs):
+                threading.Thread(target=lambda r=r, p=p: (
+                    p.wait(), exits.append(r)), daemon=True).start()
             end = time.monotonic() + deadline_s
-            failed, first = None, 0
+            failed, first = None, None
             while True:
-                codes = [p.poll() for p in procs]
-                if all(c == 0 for c in codes):
-                    break
-                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                done = list(exits)
+                bad = [r for r in done if procs[r].returncode != 0]
                 if bad:
                     first = bad[0]
-                    failed = f"rank {first} exited with {codes[first]}"
+                    failed = (f"rank {first} exited with "
+                              f"{procs[first].returncode}")
+                    break
+                if len(done) == world:
                     break
                 if time.monotonic() > end:
                     failed = f"the world outlived its {deadline_s:g} s deadline"
+                    break
+                reason = watch() if watch else None
+                if reason:
+                    failed = f"the world was stopped: {reason}"
                     break
                 time.sleep(0.05)
         finally:
@@ -137,8 +159,13 @@ def launch_world(world: int, spec: dict, deadline_s: float, device=None,
                 p.wait()
         if not failed:
             with open(out_path) as f:
-                return json.load(f)
+                data = json.load(f)
+            if spec.get("tables"):
+                with open(out_path + ".tables", "rb") as f:
+                    data["tables"] = pickle.load(f)  # our own rank wrote it
+            return data
         outs = [_tail(path) for path in logs]
-    order = [first] + [r for r in range(world) if r != first]
+    lead = first or 0
+    order = [lead] + [r for r in range(world) if r != lead]
     raise WorldFailed(failed + "".join(  # the rank that failed first leads
-        f"\n--- rank {r} ---\n{outs[r]}" for r in order))
+        f"\n--- rank {r} ---\n{outs[r]}" for r in order), first)

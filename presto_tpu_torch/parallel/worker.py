@@ -22,7 +22,10 @@ times and exchange costs; with ``catch`` an error is recorded instead of
 raised.  A ``call`` job runs ``function(env, **args)`` on every rank
 (``env`` has the mesh and ``env.runner(name)``) and records every rank's
 return value.  Each statement also records the CUDA kernels' launches
-(none on the CPU, where the wrappers take their plain versions).
+(none on the CPU, where the wrappers take their plain versions).  With
+``"tables": true`` in the spec, rank 0 also pickles each statement job's
+host ``Table`` (or the error it caught) by name beside its JSON
+(``--out`` + ``.tables``), so that a caller gets typed values back.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import pickle
 import sys
 import time
 
@@ -79,7 +83,16 @@ def _launches():
     return dict(CK.LAUNCHES)
 
 
-def _sql_job(env: Env, job: dict) -> dict:
+def _portable(e: Exception) -> Exception:
+    """``e`` if it survives pickling, else a RuntimeError naming it."""
+    try:
+        pickle.loads(pickle.dumps(e))
+        return e
+    except Exception:  # noqa: BLE001 -- any pickling failure
+        return RuntimeError(f"{type(e).__name__}: {e}")
+
+
+def _sql_job(env: Env, job: dict, typed: dict) -> dict:
     import torch
     cuda = env.device.type == "cuda"
     runner = env.runner(job.get("runner", "default"))
@@ -90,7 +103,9 @@ def _sql_job(env: Env, job: dict) -> dict:
     except Exception as e:  # noqa: BLE001 -- recorded, the job asked
         if not job.get("catch"):
             raise
+        typed[job["name"]] = _portable(e)
         return {"name": job["name"], "error": f"{type(e).__name__}: {e}"}
+    typed[job["name"]] = first
     first_s = time.perf_counter() - t0
     values = table_values(first)
     equal, warm = True, []
@@ -157,8 +172,9 @@ def main(argv=None) -> int:
         CK.build()
     CK.reset_launches()
     t0 = time.perf_counter()
-    results = [_call_job(env, job) if "call" in job else _sql_job(env, job)
-               for job in spec["jobs"]]
+    typed: dict = {}
+    results = [_call_job(env, job) if "call" in job
+               else _sql_job(env, job, typed) for job in spec["jobs"]]
     out = {"world": args.world, "backend": dist.get_backend(),
            "device": str(env.device), "sf": sf,
            "seconds": time.perf_counter() - t0, "results": results,
@@ -169,6 +185,9 @@ def main(argv=None) -> int:
     if args.rank == 0 and args.out:
         with open(args.out, "w") as f:
             json.dump(out, f)
+        if spec.get("tables"):
+            with open(args.out + ".tables", "wb") as f:
+                pickle.dump(typed, f)
     dist.barrier()
     dist.destroy_process_group()
     return 0
