@@ -28,6 +28,7 @@ from ..exec.runner import LocalRunner
 from ..utils.config import Session
 from ..utils.events import (EventListenerManager, QueryCompletedEvent,
                             QueryCreatedEvent)
+from ..utils.tracing import span, statement
 
 
 class QueryState(enum.Enum):
@@ -105,9 +106,15 @@ class Cursor:
         info = QueryInfo(f"q_{next(_query_ids)}", sql)
         self.last_query = info
         self.conn._queries.append(info)
+        with statement(info.query_id):
+            self._run(info)
+        return self
+
+    def _run(self, info: QueryInfo) -> None:
+        sql = info.sql
         self.conn.events.query_created(QueryCreatedEvent(
             info.query_id, sql, self.conn.session.user))
-        t0 = time.time()
+        t0 = time.monotonic()
         try:
             info.state = QueryState.PLANNING
             table = self.conn._runner.run_sql(sql)
@@ -120,22 +127,22 @@ class Cursor:
         finally:
             # the completed event carries the row count (the JAX package
             # sends it before counting, so always 0)
-            info.elapsed_s = time.time() - t0
+            info.elapsed_s = time.monotonic() - t0
             self.conn.events.query_completed(QueryCompletedEvent(
                 info.query_id, sql, self.conn.session.user,
                 info.state.value, info.elapsed_s, info.rows, info.error))
-        data = table.to_pydict()
-        names = list(data.keys())
+        with span("result_rows"):
+            data = table.to_pydict()
+            names = list(data.keys())
+            self._rows = list(zip(*[data[n] for n in names])) if names else []
         # planning/execution warnings (reference: WarningCollector on the
         # query; surfaced in QueryResults.warnings)
         self.warnings = self.conn._runner.last_warnings.as_dicts()
         self.description = [(n, str(table.columns[n].dtype),
                              None, None, None, None, None)
                             for n in names]
-        self._rows = list(zip(*[data[n] for n in names])) if names else []
         self._pos = 0
         self.rowcount = len(self._rows)
-        return self
 
     def fetchone(self) -> Optional[Tuple]:
         if self._pos >= len(self._rows):

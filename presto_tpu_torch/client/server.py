@@ -223,7 +223,7 @@ class StatementServer:
                  trace_token: Optional[str] = None) -> _QueryResult:
         q = _QueryResult(f"q_{next(_ids)}", sql, trace_token=trace_token)
         self._queries[q.id] = q
-        t0 = time.time()
+        t0 = time.monotonic()
         slot = None
         if self.resource_groups is not None:
             from ..utils.errors import classify
@@ -233,7 +233,7 @@ class StatementServer:
                 q.state = "FAILED"
                 q.error = f"{type(e).__name__}: {e}"
                 q.error_code = classify(e)
-                q.elapsed_s = time.time() - t0
+                q.elapsed_s = time.monotonic() - t0
                 return q
         try:
             return self._execute_admitted(q, sql, session_props, t0)
@@ -264,7 +264,7 @@ class StatementServer:
                 q.state = "FAILED"
                 q.error = f"{type(e).__name__}: {e}"
                 q.error_code = classify(e)
-        q.elapsed_s = time.time() - t0
+        q.elapsed_s = time.monotonic() - t0
         return q
 
     def _ui_html(self) -> str:

@@ -25,6 +25,7 @@ import torch
 
 from ..data import types as T
 from ..data.column import Column, PLAIN, DICT, BYTES, ARRAY, MAP
+from ..utils.tracing import host_read
 
 
 class Dictionary:
@@ -149,24 +150,30 @@ def from_host(col: Column, device) -> DCol:
                 values2=values2)
 
 
-def to_host(col: DCol, sel: np.ndarray) -> Column:
-    """Materialise selected row indices back into a host Column."""
-    vals = col.values.cpu().numpy()[sel]
-    validity = None if col.validity is None else \
-        col.validity.cpu().numpy()[sel]
+def to_host(col: DCol, sel: np.ndarray, ctx=None) -> Column:
+    """Materialise selected row indices back into a host Column: one
+    device→host read per tensor of the column, each counted on
+    ``ctx.host_syncs`` (``utils/tracing.host_read``)."""
+    def read(t: torch.Tensor) -> np.ndarray:
+        with host_read(ctx):
+            host = t.cpu().numpy()
+        return host[sel]
+
+    vals = read(col.values)
+    validity = None if col.validity is None else read(col.validity)
     if col.kind == DICT:
         return Column(col.dtype, vals.astype(np.int32), validity, DICT,
                       dictionary=col.dictionary.strings)
     if col.kind == BYTES:
         return Column(col.dtype, vals, validity, BYTES,
-                      lengths=col.lengths.cpu().numpy()[sel])
+                      lengths=read(col.lengths))
     if col.kind in (ARRAY, MAP):
         return Column(col.dtype, vals, validity, col.kind,
                       dictionary=None if col.dictionary is None
                       else col.dictionary.strings,
-                      lengths=col.lengths.cpu().numpy()[sel],
+                      lengths=read(col.lengths),
                       values2=None if col.values2 is None
-                      else col.values2.cpu().numpy()[sel],
+                      else read(col.values2),
                       dictionary2=None if col.dictionary2 is None
                       else col.dictionary2.strings)
     if vals.ndim == 2 and T.is_decimal(col.dtype):
@@ -175,7 +182,7 @@ def to_host(col: DCol, sel: np.ndarray) -> Column:
         return Column(col.dtype, to_host_ints(vals), validity, PLAIN)
     if col.values2 is not None:  # a zoned timestamp's offsets
         return Column(col.dtype, vals, validity, PLAIN,
-                      values2=col.values2.cpu().numpy()[sel])
+                      values2=read(col.values2))
     return Column(col.dtype, vals, validity, PLAIN)
 
 

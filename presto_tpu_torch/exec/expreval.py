@@ -60,6 +60,7 @@ from ..ops import int128 as I128
 from ..ops import sort as SORT
 from ..ops import strings as S
 from ..sql import ir
+from ..utils.tracing import host_read
 from .columns import Chunk, DCol, Dictionary
 from .plan import _scale_of
 
@@ -1186,7 +1187,9 @@ def _date_format(expr, args) -> DCol:
     uniq, codes = torch.unique(torch.where(a.valid_or_true(), v, 0),
                                return_inverse=True)
     unit = dt.timedelta(days=1) if day else dt.timedelta(microseconds=1)
-    strs = [(_EPOCH + unit * u).strftime(fmt) for u in uniq.tolist()]
+    with host_read():
+        units = uniq.tolist()
+    strs = [(_EPOCH + unit * u).strftime(fmt) for u in units]
     return _dict_result(strs, codes, a.validity, T.VARCHAR)
 
 
@@ -1197,7 +1200,10 @@ def _date_parse(expr, args) -> DCol:
     fmt = _strftime_format(expr.name, _lit_str(expr, 1, "format"), True)
     strs, codes = _host_strings(a)
     live = torch.zeros((len(strs),), dtype=torch.bool)
-    live[codes[a.valid_or_true()].cpu()] = True
+    seen = codes[a.valid_or_true()]
+    with host_read():
+        seen = seen.cpu()
+    live[seen] = True
     us = [(dt.datetime.strptime(s, fmt) - _EPOCH) // _ONE_MICRO if ok else 0
           for s, ok in zip(strs, live.tolist())]
     table = torch.tensor(us, dtype=torch.int64, device=codes.device)
@@ -1242,12 +1248,15 @@ def _host_strings(col: DCol):
     if col.kind != BYTES:
         raise NotImplementedError(f"string function of a {col.kind} "
                                   f"{col.dtype} column")
-    vals = np.ascontiguousarray(col.values.cpu().numpy())
+    with host_read():
+        vals = np.ascontiguousarray(col.values.cpu().numpy())
+    with host_read():
+        lengths = col.lengths.cpu().tolist()
     w = vals.shape[1]
     raw = vals.tobytes()
     index: dict = {}
     rows = [index.setdefault(raw[i * w:i * w + ln], len(index))
-            for i, ln in enumerate(col.lengths.cpu().tolist())]
+            for i, ln in enumerate(lengths)]
     return ([b.decode("ascii") for b in index],
             torch.tensor(rows, dtype=torch.int64, device=col.values.device))
 
@@ -1566,10 +1575,13 @@ def _row_values(col: DCol) -> list:
     ``_col_py_values``)."""
     if col.kind != PLAIN:
         strs, codes = _host_strings(col)
-        return [strs[c] for c in codes.tolist()]
+        with host_read():
+            codes = codes.tolist()
+        return [strs[c] for c in codes]
     if _is_i128(col):
         raise NotImplementedError(f"a {col.dtype} value as text")
-    vals = col.values.cpu().tolist()
+    with host_read():
+        vals = col.values.cpu().tolist()
     s = _scale_of(col.dtype)
     if T.is_decimal(col.dtype) and s:
         return [v / 10 ** s for v in vals]
@@ -1589,7 +1601,10 @@ def _concat_ws(expr, args) -> DCol:
     sep = _lit_str(expr, 0, "separator")
     n = args[0].n_rows
     vals = [_row_values(c) for c in args[1:]]
-    oks = [c.valid_or_true().cpu().tolist() for c in args[1:]]
+    oks = []
+    for c in args[1:]:
+        with host_read():
+            oks.append(c.valid_or_true().cpu().tolist())
     strs = [sep.join(str(v) for v, ok in zip(row, okr) if ok)
             for row, okr in zip(zip(*vals), zip(*oks))] if vals else [""] * n
     return _rows_result(strs, None, expr.dtype, args[0].values.device)
@@ -2010,7 +2025,8 @@ def _distinct_arrays(a: DCol):
     if rows.shape[0] == 0:
         return [], torch.zeros((0,), dtype=torch.int64, device=v.device)
     uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
-    host = uniq.cpu().numpy()
+    with host_read():
+        host = uniq.cpu().numpy()
     et = a.dtype.element
     strs = np.array(_strs(a.dictionary), dtype=object)
     out = []
@@ -2117,8 +2133,10 @@ def _split_bytes(expr, a: DCol, delim: int) -> DCol:
     nd = isd.sum(1)
     nwords = nd + 1
     dpos = torch.sort((~isd).to(torch.int8), dim=1, stable=True).indices
-    total, most = (torch.stack([nwords.sum(), nwords.max()]).tolist()
-                   if n else (0, 0))
+    total, most = 0, 0
+    if n:
+        with host_read():
+            total, most = torch.stack([nwords.sum(), nwords.max()]).tolist()
     row = torch.repeat_interleave(torch.arange(n, device=dev), nwords,
                                   output_size=total)
     k = torch.arange(total, device=dev) - (torch.cumsum(nwords, 0)
@@ -2126,14 +2144,18 @@ def _split_bytes(expr, a: DCol, delim: int) -> DCol:
     start = torch.where(k == 0, 0, dpos[row, (k - 1).clamp(0, w - 1)] + 1)
     end = torch.where(k == nd[row], ln[row], dpos[row, k.clamp(0, w - 1)])
     wlen = end - start
-    wmax = max(int(wlen.max()) if total else 0, 1)
+    wmax = 1
+    if total:
+        with host_read():
+            wmax = max(int(wlen.max()), 1)
     j = torch.arange(wmax, device=dev)
     mat = torch.where(j[None, :] < wlen[:, None],
                       v[row[:, None], (start[:, None] + j).clamp(max=w - 1)],
                       0)
     key = torch.stack(SORT.bytes_sort_keys(mat, wlen) + [wlen], 1)
     uniq, inv = torch.unique(key, dim=0, return_inverse=True)
-    host = uniq.cpu().numpy()
+    with host_read():
+        host = uniq.cpu().numpy()
     words = [host[i, :-1].astype(">i8").tobytes()[:host[i, -1]].decode(
         "ascii") for i in range(host.shape[0])]
     out = torch.zeros((n * most,), dtype=torch.int32, device=dev)

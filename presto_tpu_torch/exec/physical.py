@@ -6,7 +6,7 @@ Torch port of the operator-at-a-time path of ``presto_tpu/exec/physical.py``
 produces one; selection is a row mask, and where an output size depends on
 the data (compaction, group capacity, join table size) the host reads one
 scalar from the device — each such read is counted in
-``ExecContext.host_syncs``.
+``ExecContext.host_syncs`` through ``utils/tracing.host_read``.
 
 Operators ↔ reference:
 - PhysScan            ← TableScanOperator + TPC-H / TPC-DS page source
@@ -100,6 +100,7 @@ from ..ops import sort as SORT
 from ..ops import window as W
 from ..sql import ir
 from ..utils.memory import chunk_bytes, col_bytes
+from ..utils.tracing import count_reads, host_read, span
 from .columns import Chunk, DCol, Dictionary
 from .expreval import (_element, _host_strings, _pad_bytes, _rank_in,
                        as_double, dcol_to_bytes, dictionary_bytes, eval_expr,
@@ -132,40 +133,48 @@ class ExecContext:
     pool: object = None                     # utils.memory.MemoryPool
     spill_partitions: int = 0
 
+    def __post_init__(self):
+        # the reads of expression evaluation, which has no context at
+        # hand, count on the newest context of the thread
+        count_reads(self)
+
 
 def _sync_int(ctx: ExecContext, t: torch.Tensor) -> int:
     """Read one device scalar on the host (waits for the device)."""
-    ctx.host_syncs += 1
-    return int(t.item())
+    with host_read(ctx):
+        return int(t.item())
 
 
 def execute(plan: PhysOp, ctx: ExecContext) -> Chunk:
-    """Run ``plan``; with ``ctx.collect_stats`` (EXPLAIN ANALYZE) also
-    record each node's rows, output bytes, and its wall time with and
-    without its children (``tree_ms``, ``wall_ms``), fenced by
-    ``torch.cuda.synchronize`` on a card (the reference's OperationTimer,
-    ``operator/Driver.java:388`` → OperatorStats).  Off, it adds no
-    fence and no host read."""
-    if not ctx.collect_stats:
-        return _execute_node(plan, ctx)
-    device = ctx.datasource.device
+    """Run ``plan`` as the span ``op:<Operator>`` (``utils/tracing.py``);
+    with ``ctx.collect_stats`` (EXPLAIN ANALYZE) also record each node's
+    rows, output bytes, and its wall time with and without its children
+    (``tree_ms``, ``wall_ms``), fenced by ``torch.cuda.synchronize`` on a
+    card (the reference's OperationTimer, ``operator/Driver.java:388`` →
+    OperatorStats).  Off, it adds no fence and no host read."""
+    with span(plan.op_span):
+        if not ctx.collect_stats:
+            return _execute_node(plan, ctx)
+        device = ctx.datasource.device
 
-    def fence():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        def fence():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
-    fence()
-    t0 = time.perf_counter()
-    out = _execute_node(plan, ctx)
-    fence()
-    wall = (time.perf_counter() - t0) * 1e3
-    rows = _sync_int(ctx, out.mask.sum())
-    nbytes = sum(col_bytes(c) for c in out.cols.values()) + out.mask.numel()
-    self_ms = wall - sum(ctx.node_stats.get(id(c), {}).get("tree_ms", 0.0)
-                         for c in plan.children())
-    ctx.node_stats[id(plan)] = {"rows": rows, "wall_ms": max(self_ms, 0.0),
-                                "tree_ms": wall, "bytes": nbytes}
-    return out
+        fence()
+        t0 = time.perf_counter()
+        out = _execute_node(plan, ctx)
+        fence()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = _sync_int(ctx, out.mask.sum())
+        nbytes = sum(col_bytes(c) for c in out.cols.values()) + \
+            out.mask.numel()
+        self_ms = wall - sum(ctx.node_stats.get(id(c), {}).get("tree_ms", 0.0)
+                             for c in plan.children())
+        ctx.node_stats[id(plan)] = {"rows": rows,
+                                    "wall_ms": max(self_ms, 0.0),
+                                    "tree_ms": wall, "bytes": nbytes}
+        return out
 
 
 def _execute_node(plan: PhysOp, ctx: ExecContext) -> Chunk:
@@ -278,12 +287,12 @@ def _exec_scalar_bind(plan: PhysScalarBind, ctx: ExecContext) -> Chunk:
         if sc.n_rows:
             first = sc.mask.to(torch.uint8).argmax().reshape(1)
             row = c.take(first)
-            ctx.host_syncs += 1
             # a DOUBLE travels as its bits in the int64 word
             bits = row.values.reshape(-1).to(dtype).view(torch.int64)
             word = torch.cat([sc.mask.sum().reshape(1),
-                              row.valid_or_true().to(torch.int64),
-                              bits]).tolist()
+                              row.valid_or_true().to(torch.int64), bits])
+            with host_read(ctx):
+                word = word.tolist()
         else:
             word = [0]
         if word[0] > 1:
@@ -857,8 +866,9 @@ def _partition_rows(chunk: Chunk, part: torch.Tensor, k: int,
     pid = torch.where(chunk.mask, part, k)
     del part  # the ids live on only in the order and the sizes
     order = torch.sort(pid, stable=True).indices
-    ctx.host_syncs += 1
-    sizes = torch.bincount(pid, minlength=k + 1)[:k].tolist()
+    sizes = torch.bincount(pid, minlength=k + 1)[:k]
+    with host_read(ctx):
+        sizes = sizes.tolist()
     del pid
     start = 0
     for size in sizes:

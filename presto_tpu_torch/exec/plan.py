@@ -22,6 +22,12 @@ def _scale_of(t: T.DataType) -> int:
 
 @dataclass
 class PhysOp:
+    op_span = "op:Op"  # the node's span: op: and its class less "Phys"
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls.op_span = "op:" + cls.__name__.removeprefix("Phys")
+
     def children(self) -> Sequence["PhysOp"]:
         return ()
 

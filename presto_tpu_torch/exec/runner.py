@@ -30,6 +30,7 @@ dotted alias into a ROW).
 from __future__ import annotations
 
 import re
+import weakref
 from collections import Counter
 from typing import List, Optional
 
@@ -42,6 +43,7 @@ from ..data.table import Table
 from ..tpch.schema import SCHEMAS
 from ..utils.metrics import REGISTRY
 from ..utils.security import AccessControl, WarningCollector
+from ..utils.tracing import host_read, span, statement
 from .columns import Chunk, to_host
 from .datasource import DataSource
 from .physical import ExecContext, execute
@@ -93,10 +95,13 @@ class LocalRunner:
         self.last_warnings = WarningCollector()
         self.last_applied_rules: List[str] = []
         self.metrics = REGISTRY
+        # held weakly: the process-global registry must not keep a
+        # dropped runner's device tables alive (a dead gauge reads NaN)
+        me = weakref.ref(self)
         self.metrics.set_gauge("datasource.pool_used_bytes",
-                               lambda: self.datasource.pool.used)
+                               lambda: me().datasource.pool.used)
         self.metrics.set_gauge("datasource.ingest_slices",
-                               lambda: self.datasource.ingest_slices)
+                               lambda: me().datasource.ingest_slices)
 
     def _check_access(self, plan: PhysOp) -> None:
         """Every scan passes the AccessControl seam (reference:
@@ -107,6 +112,7 @@ class LocalRunner:
         for c in plan.children():
             self._check_access(c)
 
+    @span("plan")
     def plan_sql(self, sql: str) -> PhysOp:
         from ..sql.parser import parse
         from ..sql.planner.planner import Planner
@@ -143,14 +149,16 @@ class LocalRunner:
         return table
 
     def run_sql(self, sql: str) -> Table:
-        m = re.match(r"\s*explain(\s+analyze)?\s+", sql, re.I)
-        if m:
-            return self._explain(sql[m.end():], analyze=bool(m.group(1)))
-        ddl = self._maybe_ddl(sql)
-        if ddl is not None:
-            return ddl
-        plan = self._cached_plan(sql)
-        return self.run_physical(plan, self.last_row_outputs)
+        with statement():
+            m = re.match(r"\s*explain(\s+analyze)?\s+", sql, re.I)
+            if m:
+                return self._explain(sql[m.end():],
+                                     analyze=bool(m.group(1)))
+            ddl = self._maybe_ddl(sql)
+            if ddl is not None:
+                return ddl
+            plan = self._cached_plan(sql)
+            return self.run_physical(plan, self.last_row_outputs)
 
     def run_sql_streaming(self, sql: str,
                           slice_rows: int = 1 << 22) -> Table:
@@ -162,13 +170,14 @@ class LocalRunner:
         runs through ``run_sql``; ``last_streamed`` says which path
         answered."""
         from .streaming import run_streaming_agg
-        ctx = self._context()
-        out = run_streaming_agg(self.datasource, self._cached_plan(sql), ctx,
-                                slice_rows)
-        if out is None:
-            return self.run_sql(sql)
-        self._finish(ctx, streamed=True)
-        return out
+        with statement():
+            ctx = self._context()
+            out = run_streaming_agg(self.datasource, self._cached_plan(sql),
+                                    ctx, slice_rows)
+            if out is None:
+                return self.run_sql(sql)
+            self._finish(ctx, streamed=True)
+            return out
 
     def _cached_plan(self, sql: str) -> PhysOp:
         version = self.datasource.catalog.version
@@ -394,21 +403,22 @@ def _split_top_level(text: str) -> list:
 
 def materialize(chunk: Chunk, ctx: ExecContext, rows=None) -> Table:
     """Masked-in rows of a device chunk → host Table (one device→host read
-    for the mask, then one per column tensor); the field columns of each
-    shredded ROW output in ``rows`` ({base: field columns}, the planner's
-    ``row_outputs``) fold into one ROW column ``base`` where its first
-    field stood."""
-    sel = np.nonzero(chunk.mask.cpu().numpy())[0]
-    ctx.host_syncs += 1 + sum(
-        1 + (c.validity is not None) + (c.lengths is not None)
-        + (c.values2 is not None) for c in chunk.cols.values())
-    cols = {name: to_host(col, sel) for name, col in chunk.cols.items()}
-    for base, fields in (rows or {}).items():
-        if not all(f in cols for f in fields):
-            continue
-        row = row_column([(f[len(base) + 1:], cols[f]) for f in fields])
-        cols = {(base if n == fields[0] else n): (row if n == fields[0]
-                                                  else c)
-                for n, c in cols.items() if n == fields[0]
-                or n not in fields}
-    return Table(cols)
+    for the mask, then one per column tensor), as the span
+    ``result_rows``; the field columns of each shredded ROW output in
+    ``rows`` ({base: field columns}, the planner's ``row_outputs``) fold
+    into one ROW column ``base`` where its first field stood."""
+    with span("result_rows"):
+        with host_read(ctx):
+            mask = chunk.mask.cpu().numpy()
+        sel = np.nonzero(mask)[0]
+        cols = {name: to_host(col, sel, ctx)
+                for name, col in chunk.cols.items()}
+        for base, fields in (rows or {}).items():
+            if not all(f in cols for f in fields):
+                continue
+            row = row_column([(f[len(base) + 1:], cols[f]) for f in fields])
+            cols = {(base if n == fields[0] else n): (row if n == fields[0]
+                                                      else c)
+                    for n, c in cols.items() if n == fields[0]
+                    or n not in fields}
+        return Table(cols)

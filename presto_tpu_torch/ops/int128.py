@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import span
+
 I64Pair = Tuple[torch.Tensor, torch.Tensor]
 
 SIGN = -2**63
@@ -155,43 +157,49 @@ def mul(ahi, alo, bhi, blo) -> I64Pair:
 def udivmod(nhi, nlo, dhi, dlo):
     """Unsigned 128/128 long division (bit-serial shift-subtract, 128
     rounds with a static bit index — used on group-count-sized tensors).
-    Returns (q_hi, q_lo, r_hi, r_lo).  Divisor must be nonzero."""
-    qh = torch.zeros_like(nhi)
-    ql = torch.zeros_like(nhi)
-    rh = torch.zeros_like(nhi)
-    rl = torch.zeros_like(nhi)
-    for k in range(127, -1, -1):
-        bit = lshr(nhi, k - 64) & 1 if k >= 64 else lshr(nlo, k) & 1
-        rh = (rh << 1) | lshr(rl, 63)
-        rl = (rl << 1) | bit
-        ge = uge(rh, dhi) & ((rh != dhi) | uge(rl, dlo))
-        rh2, rl2 = sub(rh, rl, dhi, dlo)
-        rh = torch.where(ge, rh2, rh)
-        rl = torch.where(ge, rl2, rl)
-        g = ge.to(torch.int64)
-        if k >= 64:
-            qh = qh | (g << (k - 64))
-        else:
-            ql = ql | (g << k)
-    return qh, ql, rh, rl
+    Returns (q_hi, q_lo, r_hi, r_lo).  Divisor must be nonzero.  The
+    span ``int128_div`` (``utils/tracing.py``)."""
+    with span("int128_div", outermost=True):
+        qh = torch.zeros_like(nhi)
+        ql = torch.zeros_like(nhi)
+        rh = torch.zeros_like(nhi)
+        rl = torch.zeros_like(nhi)
+        for k in range(127, -1, -1):
+            bit = lshr(nhi, k - 64) & 1 if k >= 64 else lshr(nlo, k) & 1
+            rh = (rh << 1) | lshr(rl, 63)
+            rl = (rl << 1) | bit
+            ge = uge(rh, dhi) & ((rh != dhi) | uge(rl, dlo))
+            rh2, rl2 = sub(rh, rl, dhi, dlo)
+            rh = torch.where(ge, rh2, rh)
+            rl = torch.where(ge, rl2, rl)
+            g = ge.to(torch.int64)
+            if k >= 64:
+                qh = qh | (g << (k - 64))
+            else:
+                ql = ql | (g << k)
+        return qh, ql, rh, rl
 
 
 def div_round_half_up(nhi, nlo, dhi, dlo) -> I64Pair:
     """Signed int128 / int128, rounded half away from zero
     (``Decimals.java`` HALF_UP).  Divisor zero → caller masks validity
-    (we substitute 1 to keep the kernel total)."""
-    dz = eq(dhi, dlo, torch.zeros_like(dhi), torch.zeros_like(dlo))
-    dhi = torch.where(dz, 0, dhi)
-    dlo = torch.where(dz, 1, dlo)
-    s = (nhi < 0) ^ (dhi < 0)
-    nh, nl = abs128(nhi, nlo)
-    dh, dl = abs128(dhi, dlo)
-    qh, ql, rh, rl = udivmod(nh, nl, dh, dl)
-    r2h, r2l = shl(rh, rl, 1)
-    up = uge(r2h, dh) & ((r2h != dh) | uge(r2l, dl))
-    qh, ql = add(qh, ql, torch.zeros_like(qh), up.to(torch.int64))
-    nqh, nql = neg(qh, ql)
-    return torch.where(s, nqh, qh), torch.where(s, nql, ql)
+    (we substitute 1 to keep the kernel total).  The span ``int128_div``
+    (the ``udivmod`` inside opens none of its own).  The span is opened
+    inside, not by a decorator: a wrapper's arguments would keep the
+    caller's divisor alive while the rebound one is in use."""
+    with span("int128_div", outermost=True):
+        dz = eq(dhi, dlo, torch.zeros_like(dhi), torch.zeros_like(dlo))
+        dhi = torch.where(dz, 0, dhi)
+        dlo = torch.where(dz, 1, dlo)
+        s = (nhi < 0) ^ (dhi < 0)
+        nh, nl = abs128(nhi, nlo)
+        dh, dl = abs128(dhi, dlo)
+        qh, ql, rh, rl = udivmod(nh, nl, dh, dl)
+        r2h, r2l = shl(rh, rl, 1)
+        up = uge(r2h, dh) & ((r2h != dh) | uge(r2l, dl))
+        qh, ql = add(qh, ql, torch.zeros_like(qh), up.to(torch.int64))
+        nqh, nql = neg(qh, ql)
+        return torch.where(s, nqh, qh), torch.where(s, nql, ql)
 
 
 POW10 = [10**i for i in range(19)]

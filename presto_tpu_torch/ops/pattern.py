@@ -37,6 +37,8 @@ from typing import Dict, FrozenSet, List, Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import host_read
+
 DEAD = 0  # DFA dead state is always index 0
 
 
@@ -181,7 +183,8 @@ STEPS_PER_CHECK = 8  # lockstep steps between host reads of "any live?"
 
 
 def _read(t: torch.Tensor) -> int:
-    return int(t.item())
+    with host_read():
+        return int(t.item())
 
 
 def match_lengths(codes: torch.Tensor, new_part: torch.Tensor,

@@ -104,6 +104,7 @@ from ..ops import quantile as Q
 from ..ops import sort as SORT
 from ..ops.hashing import hash_keys
 from ..sql import ir
+from ..utils.tracing import host_read
 
 # aggregates with a mergeable state in this package
 STATE_FUNCS = frozenset({"count", "count_star", "sum", "avg", "min", "max",
@@ -514,9 +515,9 @@ def _gather_equal(ctx: DistContext, t: torch.Tensor) -> torch.Tensor:
 def _gather_objects(ctx: DistContext, obj) -> list:
     """Every rank's host object, by rank (one host read)."""
     out = [None] * ctx.mesh.world
-    dist.all_gather_object(out, obj, group=ctx.mesh.group)
+    with host_read(ctx):
+        dist.all_gather_object(out, obj, group=ctx.mesh.group)
     ctx.collectives += 1
-    ctx.host_syncs += 1
     return out
 
 
@@ -526,8 +527,8 @@ def _swap_counts(ctx: DistContext, send: torch.Tensor):
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=ctx.mesh.group)
     ctx.collectives += 1
-    ctx.host_syncs += 1
-    both = torch.cat([send, recv]).tolist()
+    with host_read(ctx):
+        both = torch.cat([send, recv]).tolist()
     w = ctx.mesh.world
     return both[:w], both[w:]
 
@@ -669,8 +670,8 @@ def allgather_chunk(ctx: DistContext, chunk: Chunk) -> Chunk:
     chunk = _agree(ctx, chunk)
     m = ctx.mesh
     counts = _gather_equal(ctx, chunk.mask.sum().reshape(1).to(torch.int64))
-    ctx.host_syncs += 1
-    counts = counts.tolist()
+    with host_read(ctx):
+        counts = counts.tolist()
     top = max(counts)
     rows = _live_rows(chunk, counts[m.rank])
     buf, layout = _pack(chunk, rows)
