@@ -48,7 +48,9 @@ non-zero without printing a result):
    shapes the main path gives it (``sorted_probe`` at Q14's launch, at
    the largest launch of Q3 and at the largest launch of Q4 and Q21 into
    a build with repeated keys, captured from a run of the query; also at
-   SF1's lineitem -> orders probe, clustered and shuffled), timed two ways,
+   SF1's lineitem -> orders probe, clustered and shuffled; ``seg_reduce``
+   at Q1's largest sum and count, captured from a run of Q1, beside the
+   library scatter alone), timed two ways,
    each the median of 20 samples with the kernel, its plain version and
    the library call in turns:
    - call time (``call_ms``, also ``ms``): CUDA events around 10
@@ -213,7 +215,9 @@ OTHER_QUERIES = (2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19,
 PROBED = ("q3", "q4", "q21", "q7", "q8", "q9", "q11", "q12", "q13", "q15",
           "q16", "q19", "q20", "q22")
 REPLACES = {"masked_sum": "presto_tpu/ops/pallas_kernels.py:103",
-            "sorted_probe": "presto_tpu/ops/pallas_kernels.py:196"}
+            "sorted_probe": "presto_tpu/ops/pallas_kernels.py:196",
+            # no TPU kernel: the segment reductions' colliding scatters
+            "seg_reduce": "index_add_ / scatter_reduce_ (ops/agg.py)"}
 TPCDS_SF = 1.0             # the smallest scale the TPC-DS spec defines
 TPCDS_CHECK_SF = 0.02      # the scale held to SQLite
 TPCDS_TIMED_RUNS = 3
@@ -278,8 +282,9 @@ def device_ms(torch, fns: dict) -> dict:
     summed duration of the device activities of CALLS calls, per call,
     each sample one ``torch.profiler`` window, the functions in turns.
     The profiler now and then drops an activity or a whole window's: a
-    window whose count is not a multiple of CALLS is taken again, and
-    after five such windows in a row the script fails."""
+    window whose count is not a multiple of CALLS is taken again, its
+    activities by name printed as a ``profiler`` line, and after five such
+    windows in a row the script fails."""
     def window(fn) -> float:
         def run():
             for _ in range(CALLS):
@@ -289,8 +294,12 @@ def device_ms(torch, fns: dict) -> dict:
             if events and len(events) % CALLS == 0:
                 return sum(e.time_range.elapsed_us()
                            for e in events) / CALLS / 1e3
+            names = {}
+            for e in events:
+                names[e.name] = names.get(e.name, 0) + 1
+            say("profiler", calls=CALLS, activities=len(events), names=names)
         raise AssertionError(f"profiler: {len(events)} device activities "
-                             f"in a window of {CALLS} calls")
+                             f"in a window of {CALLS} calls: {names}")
 
     for fn in fns.values():
         fn()
@@ -455,6 +464,90 @@ def measure_masked_sum(torch, CK, okey, mask, name="bigint_sum") -> dict:
         plain_ms=calls["plain"], library_ms=calls["library"],
         library_device_ms=dev["library"],
         bound_ms=(9 * n + 8) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def seg_inputs(torch, values, slot, mask, capacity: int, op: int) -> list:
+    """A ``seg_reduce`` launch's inputs as ``measure_apart`` saves them:
+    tensors only, a count's missing values as an empty tensor, the op by
+    its code (``CK.SEG_OPS``)."""
+    return [values.clone() if values is not None
+            else torch.empty(0, dtype=torch.int64, device=slot.device),
+            slot.clone(), mask.clone(), torch.tensor(capacity),
+            torch.tensor(op)]
+
+
+def capture_seg_reduce(torch, CK, run) -> dict:
+    """The inputs of the largest sum and the largest count ``seg_reduce``
+    launch that ``run()`` makes (by rows, as ``seg_inputs``), through a
+    wrapper around ``CK.seg_reduce`` while it runs."""
+    best, real = {}, CK.seg_reduce
+
+    def record(values, slot, mask, capacity, op="add"):
+        out = real(values, slot, mask, capacity, op)
+        kind = "count" if values is None else op
+        if kind in ("add", "count") and slot.is_cuda and capacity and \
+                slot.shape[0] > best.get(kind, (-1,))[0]:
+            best[kind] = (slot.shape[0], seg_inputs(
+                torch, values, slot, mask, capacity, CK.SEG_OPS[op]))
+        return out
+
+    CK.seg_reduce = record
+    try:
+        run()
+    finally:
+        CK.seg_reduce = real
+    return {k: v[1] for k, v in best.items()}
+
+
+def seg_bound_ms(n: int, capacity: int, slot_bytes: int,
+                 values: bool) -> float:
+    """Least time of a segment reduction: each row's value (8 bytes, none
+    for a count), slot and one-byte mask read once, the slots written."""
+    return ((8 * values + slot_bytes + 1) * n + 8 * capacity) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def measure_seg_reduce(torch, CK, name, values, slot, mask, capacity,
+                       op) -> dict:
+    """``seg_reduce`` at one launch's inputs (``seg_inputs``' form): its
+    plain version on the card, and the library scatter alone
+    (``index_add_`` / ``scatter_reduce_`` into a spare slot, its index
+    made beforehand)."""
+    capacity, op = int(capacity), list(CK.SEG_OPS)[int(op)]
+    values = values if values.numel() else None
+    n = slot.shape[0]
+    idx = torch.where(mask & (slot >= 0) & (slot < capacity),
+                      slot.to(torch.int64), capacity)
+    src = values if values is not None else torch.ones_like(idx)
+    lib = torch.full((capacity + 1,), CK.seg_identity(op),
+                     dtype=torch.int64, device=slot.device)
+    library = (lambda: lib.index_add_(0, idx, src)) if op == "add" else \
+        (lambda: lib.scatter_reduce_(0, idx, src, reduce="a" + op))
+    fns = {"kernel": lambda: CK.seg_reduce(values, slot, mask, capacity, op),
+           "plain": lambda: CK.seg_reduce_plain(values, slot, mask,
+                                                capacity, op),
+           "library": library}
+    got = fns["kernel"]()
+    want = fns["plain"]()
+    torch.cuda.synchronize()
+    err = int((got != want).sum())
+    if err:
+        raise AssertionError(f"seg_reduce {name}: {err} of {capacity} "
+                             "slots differ from the plain version")
+    calls = call_ms(torch, fns)
+    dev = device_ms(torch, {k: fns[k] for k in ("kernel", "library")})
+    plan = CK.seg_reduce_plan(n, capacity, torch.cuda.get_device_properties(
+        slot.device).multi_processor_count)
+    what = "count" if values is None else f"{op} of int64 values"
+    return dict(
+        shape=f"{name}: {what}, N={n} {slot.dtype} slots + bool mask, "
+              f"capacity {capacity}",
+        plan=dict(zip(("blocks", "threads", "privatised"), plan)),
+        max_abs_err=err, call_ms=calls["kernel"], device_ms=dev["kernel"],
+        plain_ms=calls["plain"], library_ms=calls["library"],
+        library_device_ms=dev["library"],
+        bound_ms=seg_bound_ms(n, capacity, slot.element_size(),
+                              values is not None), bound_by="bytes")
 
 
 def largest_probe(torch, CK, runner, sql, repeated: bool):
@@ -641,8 +734,8 @@ def statements_phase(torch, CK, runner, card: str, label: str,
             result=want[name] if len(str(want[name])) < 300 else None,
             equals_oracle=True, card=card, **extra)
     launches = dict(CK.LAUNCHES)
-    for k, v in launches.items():
-        if v <= 0 or "inputs" not in largest[k]:
+    for k in largest:
+        if launches[k] <= 0 or "inputs" not in largest[k]:
             raise AssertionError(f"the {label} phase launched no {k}")
     say(f"{label}_done", statements=len(statements), launches=launches,
         largest={k: {"statement": v["statement"], "rows": v["n"]}
@@ -1010,9 +1103,10 @@ MEASURE_ARG = "--measure-probes"
 
 
 def measure_apart(torch, captured: dict) -> list:
-    """``measure_masked_sum`` or ``measure_sorted_probe`` at each captured
-    launch (name -> kernel, its inputs), in a fresh process of this script
-    started with ``MEASURE_ARG`` and a file of the inputs under build/.
+    """``measure_masked_sum``, ``measure_sorted_probe`` or
+    ``measure_seg_reduce`` at each captured launch (name -> kernel, its
+    inputs), in a fresh process of this script started with
+    ``MEASURE_ARG`` and a file of the inputs under build/.
     After the TPC-DS main path this process's profiler records only part
     of a window's device activities, and that stays so after
     ``torch.cuda.empty_cache()``; a fresh process records them whole.
@@ -1027,6 +1121,9 @@ def measure_apart(torch, captured: dict) -> list:
                              text=True, timeout=600)
     finally:
         os.remove(path)
+    for ln in out.stdout.splitlines():
+        if ln.startswith("[profiler] "):
+            print(ln, flush=True)
     if out.returncode:
         raise AssertionError(f"the measuring process exited "
                              f"{out.returncode}: {out.stderr[-4000:]}")
@@ -1049,6 +1146,8 @@ def measure_probes(path: str) -> int:
         args = [x.cuda() for x in inputs]
         if kernel == "sorted_probe":
             shape = measure_sorted_probe(torch, CK, name, *args)
+        elif kernel == "seg_reduce":
+            shape = measure_seg_reduce(torch, CK, name, *args)
         else:
             shape = measure_masked_sum(torch, CK, *args, name=name)
         print("[measure] " + json.dumps(dict(kernel=kernel, **shape)),
@@ -1787,8 +1886,18 @@ def main() -> int:
     probe_inputs["q3_largest"] = q3
     probe_inputs["repeated_build_largest"] = max(
         repeats, key=lambda x: x[1].shape[0])
+    q1_seg = capture_seg_reduce(torch, CK,
+                                lambda: runner.run_sql(requests["q1"]))
+    if sorted(q1_seg) != ["add", "count"]:
+        raise AssertionError(f"Q1 launched seg_reduce for {sorted(q1_seg)}"
+                             ", not for a sum and a count")
     shapes = {"masked_sum": [measure_masked_sum(torch, CK, okey, mask)],
-              "sorted_probe": []}
+              "sorted_probe": [],
+              "seg_reduce": [measure_seg_reduce(
+                  torch, CK, f"q1_{kind}", *[x.to(dev) for x in inputs])
+                  for kind, inputs in sorted(q1_seg.items())]}
+    for s in shapes["seg_reduce"]:
+        say("measure", kernel="seg_reduce", **s)
     for shape, inputs in probe_inputs.items():
         s = measure_sorted_probe(torch, CK, shape, *inputs)
         say("measure", kernel="sorted_probe", **s)

@@ -374,12 +374,8 @@ def _direct_group_ids(chunk: Chunk, exprs, capacity: int):
     gid = torch.zeros((n,), dtype=torch.int64, device=dev)
     for c, s in zip(cols, sizes):
         gid = gid * s + c.clamp(0, s - 1)
-    # lowest row id of each composite code (spare slot `prod` takes the
-    # masked-out rows)
-    first = torch.full((prod + 1,), n, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, torch.where(chunk.mask, gid, prod),
-                          torch.arange(n, device=dev), reduce="amin")
-    first = first[:prod]
+    # lowest row id of each composite code (I64_MAX >= n where none)
+    first = A.seg_min(torch.arange(n, device=dev), gid, chunk.mask, prod)
     owner = torch.full((capacity,), HT.EMPTY, dtype=torch.int32, device=dev)
     owner[:prod] = torch.where(first < n, first, HT.EMPTY).to(torch.int32)
     slot_of_row = torch.where(chunk.mask, gid, -1).to(torch.int32)

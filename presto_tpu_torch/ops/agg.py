@@ -3,12 +3,19 @@
 Torch port of ``presto_tpu/ops/agg.py`` (the reference's accumulator
 framework, ``operator/aggregation/AccumulatorCompiler.java``).  Only the
 ``scatter`` strategy is kept: the JAX package's ``bcast`` and ``sort``
-strategies exist because colliding scatters serialise on the TPU, while
-an integer ``index_add_`` on CUDA is exact and fast.  Rows that are masked
-out, or whose group id lies outside ``[0, capacity)``, go to one spare slot
-past the end that is then cut off (JAX's ``.at[].add(mode="drop")``).
-Bitwise AND/OR have no scatter combiner in torch: the grouped ones scan
-sorted runs by doubling, the global ones reduce by halving.
+strategies exist because colliding scatters serialise on the TPU.  They
+serialise on CUDA too: an int64 ``index_add_`` of TPC-H Q1's 60 M rows
+into 4 of 64 slots took about 35 ms a call on an H100, some 150 times
+what its bytes need.  So every int64 segment sum, count, minimum and
+maximum goes to ``cuda_kernels.seg_reduce``, which combines colliding
+rows in each warp and, for few slots, in each block's shared memory
+before it touches global memory (its plain version on the CPU).  Float
+sums and the extremes of other types stay on ``index_add_`` /
+``scatter_reduce_``, whose rows that are masked out, or whose group id
+lies outside ``[0, capacity)``, go to one spare slot past the end that is
+then cut off (JAX's ``.at[].add(mode="drop")``).  Bitwise AND/OR have no
+scatter combiner in torch: the grouped ones scan sorted runs by
+doubling, the global ones reduce by halving.
 """
 
 from __future__ import annotations
@@ -30,22 +37,26 @@ def _scatter_idx(group: torch.Tensor, mask: torch.Tensor, capacity: int):
 
 def seg_sum(values, group, mask, capacity, dtype=None):
     dtype = dtype or values.dtype
+    if dtype == torch.int64 and not values.is_floating_point():
+        return CK.seg_reduce(values.to(torch.int64).contiguous(),
+                             group.contiguous(), mask.contiguous(), capacity)
     out = torch.zeros((capacity + 1,), dtype=dtype, device=values.device)
     out.index_add_(0, _scatter_idx(group, mask, capacity), values.to(dtype))
     return out[:capacity]
 
 
 def seg_count(group, mask, capacity):
-    out = torch.zeros((capacity + 1,), dtype=torch.int64, device=group.device)
-    ones = torch.ones(group.shape, dtype=torch.int64, device=group.device)
-    out.index_add_(0, _scatter_idx(group, mask, capacity), ones)
-    return out[:capacity]
+    return CK.seg_reduce(None, group.contiguous(), mask.contiguous(),
+                         capacity)
 
 
 def _seg_extreme(values, group, mask, capacity, reduce: str):
     """Per-group minimum (``amin``) or maximum (``amax``); a group with no
-    row keeps the dtype's own extreme.  A colliding ``scatter_reduce_``,
-    like ``seg_sum``'s ``index_add_``."""
+    row keeps the dtype's own extreme.  int64 values go to ``seg_reduce``,
+    others to a colliding ``scatter_reduce_``."""
+    if values.dtype == torch.int64:
+        return CK.seg_reduce(values.contiguous(), group.contiguous(),
+                             mask.contiguous(), capacity, reduce[1:])
     if values.is_floating_point():
         init = float("inf") if reduce == "amin" else float("-inf")
     else:

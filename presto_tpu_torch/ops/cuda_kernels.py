@@ -39,13 +39,16 @@ _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                           "build", "kernels")
 
-SOURCES = {"masked_sum": "masked_sum.cu", "sorted_probe": "sorted_probe.cu"}
+SOURCES = {"masked_sum": "masked_sum.cu", "sorted_probe": "sorted_probe.cu",
+           "seg_reduce": "seg_reduce.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # launches of each kernel since the last reset_launches() — the proof that
 # a run went through the kernels and not their plain versions
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# of the seg_reduce launches, those that took the privatised branch
+SEG_PRIVATISED = 0
 # while set (set_probe_recorder, set_sum_recorder), called with the inputs
 # of every sorted_probe (sorted_keys, probe_keys, n_valid) or masked_sum
 # (values, mask) launch: how a caller captures the inputs the main path
@@ -63,12 +66,15 @@ _sms: Dict[int, int] = {}                  # SM count by device index
 # sorted_probe takes its arguments in one int64 array: ctypes then converts
 # one pointer per call instead of eleven numbers; one array per thread
 _ProbeArgs = ctypes.c_longlong * 11
+_SegArgs = ctypes.c_longlong * 12
 _tls = threading.local()
 
 
 def reset_launches() -> None:
+    global SEG_PRIVATISED
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SEG_PRIVATISED = 0
 
 
 def set_probe_recorder(fn) -> None:
@@ -130,7 +136,9 @@ def build() -> Dict[str, ctypes.CDLL]:
         fns = {"masked_sum": (libs["masked_sum"].masked_sum_launch,
                               [vp, vp, i64, vp, vp]),
                "sorted_probe": (libs["sorted_probe"].sorted_probe_launch,
-                                [_ProbeArgs])}
+                                [_ProbeArgs]),
+               "seg_reduce": (libs["seg_reduce"].seg_reduce_launch,
+                              [_SegArgs])}
         for name, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -330,4 +338,110 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
         LAUNCHES["sorted_probe"] += 1
         if _probe_recorder is not None:
             _probe_recorder(sorted_keys, probe_keys, n_valid)
+    return out
+
+
+# --------------------------------------------------------------- seg reduce
+
+SEG_OPS = {"add": 0, "min": 1, "max": 2}
+SEG_THREADS = 256            # 8 warps a block
+SEG_ROWS = 4                 # rows a lane takes a step (csrc/seg_reduce.cu)
+SEG_BLOCKS_PER_SM = 8
+SEG_SHARED_BYTES = 48 << 10  # the slots' copies of one block, one a warp
+SEG_PRIVATE_SLOTS = SEG_SHARED_BYTES // (8 * (SEG_THREADS // 32))  # 768
+_I64 = torch.iinfo(torch.int64)
+
+
+def seg_identity(op: str) -> int:
+    """What a slot no row reaches holds: 0 for add, the int64 extreme
+    for min and max."""
+    return {"add": 0, "min": _I64.max, "max": _I64.min}[op]
+
+
+def seg_reduce_plain(values, slot: torch.Tensor, mask: torch.Tensor,
+                     capacity: int, op: str = "add") -> torch.Tensor:
+    """Plain PyTorch version of ``seg_reduce``: a colliding scatter into
+    ``capacity`` slots plus one spare slot that takes the skipped rows,
+    cut off after (``values`` None: a count)."""
+    g = torch.where(mask & (slot >= 0) & (slot < capacity),
+                    slot.to(torch.int64), capacity)
+    out = torch.full((capacity + 1,), seg_identity(op), dtype=torch.int64,
+                     device=slot.device)
+    if values is None:
+        values = torch.ones(slot.shape, dtype=torch.int64, device=slot.device)
+    if op == "add":
+        out.index_add_(0, g, values)
+    else:
+        out.scatter_reduce_(0, g, values, reduce="a" + op)
+    return out[:capacity]
+
+
+def seg_reduce_plan(n: int, capacity: int,
+                    sms: int) -> Tuple[int, int, bool]:
+    """Launch of ``seg_reduce`` for ``n`` rows into ``capacity`` slots on a
+    card of ``sms`` SMs: (blocks, threads, privatised).
+
+    A grid of at most SEG_BLOCKS_PER_SM blocks of 8 warps an SM, fewer
+    where the rows do not fill it (a warp step is 32 x SEG_ROWS rows): at
+    Q1's shapes 8 blocks an SM beat 4, 5 and 6 (tools/seg_reduce_sweep.py;
+    a count's 32 registers keep all 8 resident, a sum's 48 five).
+    Privatised when a copy of the slots for each warp fits the block's
+    shared memory (at most SEG_PRIVATE_SLOTS slots) and the rows outnumber
+    the slots of every block together (each block sends at most
+    ``capacity`` atomics at its end); otherwise the global branch."""
+    warps = SEG_THREADS // 32
+    steps = -(-n // (32 * SEG_ROWS))
+    blocks = max(1, min(sms * SEG_BLOCKS_PER_SM, -(-steps // warps)))
+    privatised = capacity <= SEG_PRIVATE_SLOTS and blocks * capacity <= n
+    return blocks, SEG_THREADS, privatised
+
+
+@functools.lru_cache(maxsize=1024)
+def _seg_plan(n: int, capacity: int, index: int) -> Tuple[int, int, bool]:
+    return seg_reduce_plan(n, capacity, _sm_count(index))
+
+
+def seg_reduce(values, slot: torch.Tensor, mask: torch.Tensor, capacity: int,
+               op: str = "add") -> torch.Tensor:
+    """Per-slot ``op`` (add, min, max) of int64 ``values`` over the rows
+    where ``mask`` holds and ``slot`` (int32 or int64) lies in ``[0,
+    capacity)``, as int64 [capacity]; ``values`` None counts the rows.  A
+    slot no row reaches holds ``seg_identity(op)``.  Sums wrap mod 2^64."""
+    global SEG_PRIVATISED
+    if values is not None:
+        _check(values, torch.int64, mask, torch.bool, ("values", "mask"))
+        if values.shape != slot.shape:
+            raise ValueError(f"values {tuple(values.shape)} vs slot "
+                             f"{tuple(slot.shape)}")
+    if op not in SEG_OPS or (values is None and op != "add"):
+        raise ValueError(f"seg_reduce: op {op!r}"
+                         + (" of no values" if values is None else ""))
+    _check(slot, slot.dtype, mask, torch.bool, ("slot", "mask"))
+    if slot.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"slot: expected int32 or int64, got {slot.dtype}")
+    n = slot.shape[0]
+    if mask.shape[0] != n:
+        raise ValueError(f"mask {tuple(mask.shape)} vs slot {tuple(slot.shape)}")
+    index = _card_index(slot, mask)
+    if values is not None:
+        _card_index(values, slot)
+    if index < 0:
+        return seg_reduce_plain(values, slot, mask, capacity, op)
+    if capacity >= 2**31:
+        raise ValueError(f"capacity {capacity}: the kernel takes fewer than "
+                         "2^31 slots")
+    out = torch.full((capacity,), seg_identity(op), dtype=torch.int64,
+                     device=slot.device)
+    if n and capacity:
+        blocks, threads, privatised = _seg_plan(n, capacity, index)
+        args = getattr(_tls, "seg_args", None)
+        if args is None:
+            args = _tls.seg_args = _SegArgs()
+        args[:] = (0 if values is None else values.data_ptr(),
+                   slot.data_ptr(), slot.element_size(), mask.data_ptr(), n,
+                   capacity, SEG_OPS[op], out.data_ptr(), blocks, threads,
+                   int(privatised), _stream(index))
+        _raise_on(_launcher("seg_reduce")(args), "seg_reduce")
+        LAUNCHES["seg_reduce"] += 1
+        SEG_PRIVATISED += privatised
     return out

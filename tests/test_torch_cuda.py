@@ -290,3 +290,98 @@ def test_explain_analyze_on_card_fences_every_node(card):
     wall = float(next(re.match(r"analyze: ([\d.]+)ms", ln).group(1)
                       for ln in lines if ln.startswith("analyze: ")))
     assert sum(float(m.group(2)) for m in nodes) <= wall + 5e-4 * len(nodes)
+
+
+def _seg_case(n, capacity, slot_dtype, seed, used=None, density=0.7):
+    """int64 values over the whole range (sums wrap mod 2^64), slots in
+    [0, used) or in [-3, capacity + 3), a mask of ``density`` of the
+    rows."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2**63, 2**63 - 1, size=n, dtype=np.int64)
+    g = (rng.integers(0, used, size=n) if used is not None
+         else rng.integers(-3, capacity + 3, size=n)).astype(slot_dtype)
+    m = rng.random(n) < density
+    return torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m)
+
+
+def _seg_check(card, v, g, m, capacity, want_privatised=None):
+    """Every op of ``seg_reduce`` on the card equals its plain version,
+    exactly; one launch each, privatised as the plan says."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = CK.seg_reduce_plan(g.shape[0], capacity, sms)
+    if want_privatised is not None:
+        assert plan[2] == want_privatised
+    for values, op in ((v, "add"), (None, "add"), (v, "min"), (v, "max")):
+        before = CK.LAUNCHES["seg_reduce"], CK.SEG_PRIVATISED
+        got = CK.seg_reduce(None if values is None else values.to(card),
+                            g.to(card), m.to(card), capacity, op)
+        torch.cuda.synchronize()
+        launched = int(g.shape[0] > 0 and capacity > 0)
+        assert (CK.LAUNCHES["seg_reduce"], CK.SEG_PRIVATISED) == \
+            (before[0] + launched, before[1] + launched * plan[2])
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            CK.seg_reduce_plain(values, g, m, capacity, op).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot_dtype", [np.int32, np.int64])
+def test_seg_reduce_q1_shape_equals_plain(card, slot_dtype):
+    """Q1's SF1 shape: 6,002,590 rows into 6 of 64 slots (58 empty slots
+    keep 0 or the int64 extreme), privatised; sums wrap mod 2^64."""
+    v, g, m = _seg_case(6_002_590, 64, slot_dtype, 1, used=6, density=0.98)
+    _seg_check(card, v, g, m, 64, want_privatised=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_seg_reduce_privatised_limit_equals_plain(card, slot_dtype, delta):
+    """``capacity`` at the privatised limit and one either side, slots
+    negative and past the end among them."""
+    cap = CK.SEG_PRIVATE_SLOTS + delta
+    v, g, m = _seg_case(7_000_000, cap, slot_dtype, 2 + delta)
+    _seg_check(card, v, g, m, cap, want_privatised=delta <= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["all_masked", "all_out_of_range", "tiny",
+                                  "tail", "unaligned", "global_many_slots",
+                                  "few_rows_many_slots"])
+def test_seg_reduce_edges_equal_plain(card, slot_dtype, case):
+    """All rows masked; every slot negative or >= capacity; 1 and 37 rows
+    (a partial warp step); inputs at an odd offset (the scalar loads); the
+    global branch with 2^20 slots, and with more slots than rows."""
+    n, cap, used, density = {
+        "all_masked": (100_003, 64, 6, 0.0),
+        "all_out_of_range": (100_003, 64, None, 1.0),
+        "tiny": (1, 4, 4, 1.0), "tail": (37, 8, None, 0.7),
+        "unaligned": (1_000_001, 64, 6, 0.9),
+        "global_many_slots": (3_000_000, 1 << 20, None, 0.7),
+        "few_rows_many_slots": (5_000, 100_000, None, 0.7)}[case]
+    v, g, m = _seg_case(n, cap, slot_dtype, len(case), used, density)
+    if case == "all_out_of_range":
+        g = torch.where(g >= 0, g + cap + 3, g)
+    if case == "unaligned":
+        v, g, m = v[1:], g[1:], m[1:]
+    _seg_check(card, v, g, m, cap)
+
+
+@pytest.mark.cuda
+def test_q1_on_card_equals_cpu_through_seg_reduce(card):
+    """TPC-H Q1 at SF0.01 on the card equals the port on the CPU, and its
+    segment reductions went through the kernel's privatised branch."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.tpch.queries import QUERIES
+
+    def cols(t):
+        return {name: col.to_pylist() for name, col in t.columns.items()}
+
+    want = cols(LocalRunner(scale_factor=0.01, device="cpu")
+                .run_sql(QUERIES[1]))
+    before = CK.LAUNCHES["seg_reduce"], CK.SEG_PRIVATISED
+    got = cols(LocalRunner(scale_factor=0.01).run_sql(QUERIES[1]))
+    assert CK.LAUNCHES["seg_reduce"] > before[0]
+    assert CK.SEG_PRIVATISED > before[1]
+    assert got == want

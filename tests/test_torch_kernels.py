@@ -45,7 +45,7 @@ def pallas_interpret():
 def no_launches():
     CK.reset_launches()
     yield
-    assert CK.LAUNCHES == {"masked_sum": 0, "sorted_probe": 0}
+    assert CK.LAUNCHES == dict.fromkeys(CK.SOURCES, 0)
 
 
 # ---------------------------------------------------------------- masked_sum
@@ -285,6 +285,36 @@ def test_chip_smoke_probe_bound_counts_a_sector_per_probe():
     assert C.probe_bound_ms(0, 10) * per_ms == pytest.approx(8)
 
 
+@pytest.mark.parametrize("values,slot_bytes,per_row", [
+    (True, 4, 13), (False, 4, 5), (True, 8, 17), (False, 8, 9)])
+def test_chip_smoke_seg_bound_reads_each_row_once(values, slot_bytes,
+                                                  per_row):
+    """``chip_smoke.py``'s byte bound of ``seg_reduce``: each row's value
+    (none for a count), slot and mask byte read once, the slots written."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as C
+    per_ms = C.HBM_BYTES_PER_S / 1e3
+    assert C.seg_bound_ms(59_996_324, 64, slot_bytes, values) * per_ms == \
+        pytest.approx(per_row * 59_996_324 + 8 * 64)
+
+
+def test_seg_reduce_rejects_bad_inputs():
+    v = torch.zeros(4, dtype=torch.int64)
+    g = torch.zeros(4, dtype=torch.int32)
+    m = torch.ones(4, dtype=torch.bool)
+    for args in ((v.to(torch.int32), g, m, 4), (v, g.to(torch.int16), m, 4),
+                 (v, g, m[:3], 4), (v[:3], g, m, 4), (v, g, m.to(torch.int8), 4),
+                 (v[::2], g[::2], m[::2], 4), (None, g, m, 4, "min"),
+                 (v, g, m, 4, "sum")):
+        with pytest.raises(ValueError):
+            CK.seg_reduce(*args)
+    with pytest.raises(ValueError):  # one tensor off the CPU, not on a card
+        CK.seg_reduce(v, g, m.to("meta"), 4)
+
+
 def test_sorted_probe_rejects_bad_inputs():
     keys = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
@@ -393,6 +423,163 @@ def test_seg_sum_and_count_equal_jax():
     np.testing.assert_array_equal(
         TA.seg_count(t(g), t(m), cap).numpy(),
         n(JA.seg_count(jnp.asarray(g), jnp.asarray(m), cap)))
+
+
+SEG_JAX = {"add": lambda v, g, m, c: JA.seg_sum(v, g, m, c, jnp.int64),
+           "count": lambda v, g, m, c: JA.seg_count(g, m, c),
+           "min": JA.seg_min, "max": JA.seg_max}
+
+
+def _seg_case(seed, size, capacity, slot_dtype):
+    """int64 values over the whole range (sums wrap mod 2^64), slots below
+    0, inside and at or past ``capacity``, a mask of 70 % of the rows."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2**63, 2**63 - 1, size=size, dtype=np.int64)
+    g = rng.integers(-3, capacity + 3, size=size).astype(slot_dtype)
+    m = rng.random(size) < 0.7
+    return v, g, m
+
+
+@pytest.mark.parametrize("op", ["add", "count", "min", "max"])
+@pytest.mark.parametrize("slot_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("size,capacity", [(5000, 16), (3000, 4000), (0, 8),
+                                           (7, 1)])
+def test_seg_reduce_plain_equals_jax(op, slot_dtype, size, capacity,
+                                     no_launches):
+    """``seg_reduce`` on CPU tensors (its plain version) equals the JAX
+    package's segment sum, count, min and max, exactly; a slot no row
+    reaches holds 0 or the int64 extreme, as there."""
+    v, g, m = _seg_case(size + capacity, size, capacity, slot_dtype)
+    want = n(SEG_JAX[op](jnp.asarray(v), jnp.asarray(g), jnp.asarray(m),
+                         capacity))
+    values = None if op == "count" else t(v)
+    kop = "add" if op == "count" else op
+    got = CK.seg_reduce(values, t(g), t(m), capacity, kop)
+    assert got.dtype == torch.int64 and got.shape == (capacity,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        CK.seg_reduce_plain(values, t(g), t(m), capacity, kop).numpy(), want)
+
+
+def _warp_combine_model(slots, values, op):
+    """numpy model of one row of a warp step in ``csrc/seg_reduce.cu``:
+    ``__match_any_sync`` peers, the shuffle tree of ``reduce_peers`` (every
+    lane reads before any writes), then the leaders (lowest lane of each
+    peer group) with their slot and combined value."""
+    full = 0xFFFFFFFF
+    apply = {"add": lambda a, b: (a + b + 2**63) % 2**64 - 2**63,
+             "min": min, "max": max}[op]
+    x = [int(a) for a in values]
+    peers = [sum(1 << j for j in range(32) if slots[j] == slots[i])
+             for i in range(32)]
+    rank = [bin(peers[i] & ((1 << i) - 1)).count("1") for i in range(32)]
+    rest = [peers[i] & ((0xFFFFFFFE << i) & full) for i in range(32)]
+    while any(rest):
+        nxt = [(r & -r).bit_length() for r in rest]  # __ffs
+        got = [x[(k - 1) & 31] for k in nxt]
+        x = [apply(x[i], got[i]) if nxt[i] else x[i] for i in range(32)]
+        done = sum(1 << i for i in range(32) if rank[i] & 1)
+        rest = [r & ~done & full for r in rest]
+        rank = [r >> 1 for r in rank]
+    return [(slots[i], x[i]) for i in range(32)
+            if slots[i] >= 0 and peers[i] & ((1 << i) - 1) == 0]
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("pattern", ["one_slot", "distinct", "q1_like",
+                                     "skipped", "random"])
+def test_warp_combine_model_equals_group_reduction(op, pattern):
+    """The kernel's peer reduction gives each group's whole sum (mod 2^64),
+    min or max to exactly one leader, leaders hold distinct slots (so a
+    warp's own copy takes plain stores), and skipped rows (-1) reach no
+    slot."""
+    rng = np.random.default_rng(len(pattern))
+    vals = rng.integers(-2**63, 2**63 - 1, size=32, dtype=np.int64)
+    slots = {"one_slot": np.zeros(32, int),
+             "distinct": rng.permutation(32),
+             "q1_like": rng.choice(4, 32, p=[0.25, 0.01, 0.49, 0.25]),
+             "skipped": np.where(rng.random(32) < 0.5, -1,
+                                 rng.integers(0, 3, 32)),
+             "random": rng.integers(-1, 9, 32)}[pattern].tolist()
+    leaders = _warp_combine_model(slots, vals, op)
+    assert len({s for s, _ in leaders}) == len(leaders)
+    want = {}
+    for s, v in zip(slots, vals.tolist()):
+        if s >= 0:
+            want.setdefault(s, []).append(v)
+    red = {"add": lambda a: (sum(a) + 2**63) % 2**64 - 2**63,
+           "min": min, "max": max}[op]
+    assert dict(leaders) == {s: red(a) for s, a in want.items()}
+
+
+@pytest.mark.parametrize("n_rows,capacity,want", [
+    # Q1's shapes, SF1 and SF10: 6 of 64 slots
+    (6_002_590, 64, (1056, 256, True)),
+    (59_996_324, 64, (1056, 256, True)),
+    # the privatised limit: a copy of 768 slots for each of 8 warps fills
+    # 48 KiB
+    (59_996_324, CK.SEG_PRIVATE_SLOTS, (1056, 256, True)),
+    (59_996_324, CK.SEG_PRIVATE_SLOTS + 1, (1056, 256, False)),
+    # one slot; 6,144 slots (one copy a block would fit): global
+    (59_996_324, 1, (1056, 256, True)),
+    (59_996_324, 6_144, (1056, 256, False)),
+    # fewer rows than slots: the global branch, a block per 8 warp steps
+    (100, 1000, (1, 256, False)),
+    (1_000_000, 2**20, (977, 256, False)),
+    # the block copies outnumber the rows: global
+    (6_002_590, 6_000, (1056, 256, False)),
+    # a small grid privatises while its copies are fewer than the rows
+    (10_000, 64, (10, 256, True)),
+    (1_500, 768, (2, 256, False)),
+    (0, 64, (1, 256, False)),
+])
+def test_seg_reduce_plan_edges(n_rows, capacity, want):
+    plan = CK.seg_reduce_plan(n_rows, capacity, 132)
+    assert plan == want
+    blocks, threads, privatised = plan
+    assert 1 <= blocks <= 132 * CK.SEG_BLOCKS_PER_SM
+    assert CK.SEG_PRIVATE_SLOTS == 768
+    if privatised:
+        assert threads // 32 * capacity * 8 <= CK.SEG_SHARED_BYTES
+        assert blocks * capacity <= n_rows
+
+
+@pytest.mark.parametrize("kind", ["sum", "count", "min", "max", "first_row"])
+def test_int64_reductions_route_to_seg_reduce(kind, monkeypatch):
+    """Every int64 segment sum, count, min and max goes to
+    ``cuda_kernels.seg_reduce`` (its plain version here on the CPU), and so
+    does the direct group ids' first row; float sums and int32 extremes do
+    not."""
+    calls = []
+    real = CK.seg_reduce
+    monkeypatch.setattr(CK, "seg_reduce",
+                        lambda *a: calls.append(a[4:]) or real(*a))
+    v, g, m, cap = _agg_inputs(13)
+    tv, tg, tm = t(v), t(g), t(m)
+    if kind == "sum":
+        TA.seg_sum(tv, tg, tm, cap, torch.int64)
+        TA.seg_sum(tv.to(torch.int32), tg, tm, cap, torch.int64)
+        assert calls == [(), ()]
+        TA.seg_sum(tv.to(torch.float64), tg, tm, cap)
+    elif kind == "count":
+        TA.seg_count(tg, tm, cap)
+        TA.seg_any(tm, tg, tm, cap)
+        assert calls == [(), ()]
+    elif kind in ("min", "max"):
+        f = TA.seg_min if kind == "min" else TA.seg_max
+        f(tv, tg, tm, cap)
+        assert calls == [(kind,)]
+        f(tv.to(torch.int32), tg, tm, cap)
+        f(tv.to(torch.float64), tg, tm, cap)
+    else:
+        from presto_tpu_torch.exec.runner import LocalRunner
+        r = LocalRunner(scale_factor=0.001, device="cpu")
+        got = r.run_sql("select l_returnflag, l_linestatus, count(*) c "
+                        "from lineitem group by 1, 2 order by 1, 2")
+        assert got.row_count == 4
+        assert ("min",) in calls and () in calls
+        return
+    assert len(calls) == (1 if kind in ("min", "max") else 2)
 
 
 def test_g_sum_equals_jax(no_launches):
